@@ -1,0 +1,1 @@
+"""geometry of the PyTorch/CUDA port (twin of legoslam_tpu/geometry)."""

@@ -1,0 +1,1 @@
+"""pipeline of the PyTorch/CUDA port (twin of legoslam_tpu/pipeline)."""
