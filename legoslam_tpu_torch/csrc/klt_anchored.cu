@@ -13,24 +13,33 @@
 //
 // What bounds it on an H100: latency, not bytes or FLOPs.  A tracking frame
 // has 512 lanes; each lane runs at most 10 dependent Gauss-Newton iterations
-// per level over a 9x9 bilinear window (324 gathers, ~1.5k FLOPs), so the
-// whole launch is ~10 MFLOP and touches ~0.5 MB of pyramid that stays in L2.
-// The TPU kernels sampled with one-hot matmuls on the MXU and cut a 32x256
-// tile per lane to bound that cost; a GPU gathers from any level directly,
-// so there is no tile and no lane fails for leaving one (the XLA semantics).
+// per level over a 9x9 bilinear window (324 gathers, ~1.8k FLOPs), so the
+// whole launch is ~10 MFLOP and reads ~1.1 MB (anchors and pyramid), whose
+// roofline bound is well under a microsecond.  The time is the chain of
+// dependent GN iterations of the slowest lane, so the design makes each
+// iteration short and spreads the lanes over the whole card.  The TPU
+// kernels sampled with one-hot matmuls on the MXU and cut a 32x256 tile per
+// lane to bound that cost; a GPU gathers from any level directly, so there
+// is no tile and no lane fails for leaving one (the XLA semantics).
 //
-// Design: one thread per keypoint, 128 threads per block (4 blocks at 512
-// lanes).  Each lane walks the pyramid on its own: each level gets the
-// original `valid`, a failed lane restarts the next level from its initial
-// guess, and a lane leaves the GN loop as soon as it stops (inactive lanes
-// are frozen in the reference, so a per-lane exit gives the same result as
-// its all-lanes exit).  The lane's 9x9 template for the current level is
-// staged in shared memory, laid out [element][thread] so the 32 threads of
-// a warp read 32 consecutive words.  The current window is sampled one halo
-// row at a time through a 3-row register ring, so value, both central
-// differences and the six GN sums come out of one pass with no 81-element
-// array in registers.  Sampling, clamping, the update rule and every
-// threshold follow ops/klt.py and ops/interp.py line for line.
+// Design: one warp per keypoint, 4 warps per block (128 blocks at 512
+// lanes, one per SM).  Per level the warp reads the keypoint's 9x9
+// template into its own shared memory.  Per GN iteration the 32 lanes
+// sample the 81 points of the halo window between them (3 each, bilinear,
+// clamped as ops/interp.py), stage them in the warp's shared memory,
+// __syncwarp, and then take the 49 residual and gradient terms between them
+// (2 at most each).  A fixed-order xor butterfly of the six sums leaves the
+// same totals in every lane (a + b == b + a), so the 2x2 update, the
+// divergence and convergence tests and the early exit run redundantly in
+// all lanes and the loop stays warp-uniform with no broadcast.  Each level
+// gets the original `valid`, a failed lane restarts the next level from its
+// initial guess, and a lane leaves the GN loop as soon as it stops
+// (inactive lanes are frozen in the reference, so a per-lane exit gives the
+// same result as its all-lanes exit).  The ZNCC gate is computed the same
+// way.  Levels arrive as separate pointers; samples are plain loads (the
+// texture unit's 8-bit filter weights would be too coarse).  The GN
+// iterations summed over lanes and levels go to an optional counter (the
+// work count behind the bound).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -41,11 +50,15 @@ namespace {
 constexpr int kHalfPatch = 3;
 constexpr int kPatch = 2 * kHalfPatch + 1;  // 7
 constexpr int kHalo = kPatch + 2;           // 9
-constexpr int kThreads = 128;
+constexpr int kWindow = kHalo * kHalo;      // 81 samples
+constexpr int kTerms = kPatch * kPatch;     // 49 residuals
+constexpr int kWarpsPerBlock = 4;
+constexpr int kThreads = 32 * kWarpsPerBlock;
 constexpr int kMaxLevels = 8;
+constexpr unsigned kFull = 0xffffffffu;
 
-struct PyramidGeometry {
-  long long offset[kMaxLevels];  // element offset of each level in the packed buffer
+struct Pyramid {
+  const float* level[kMaxLevels];
   int height[kMaxLevels];
   int width[kMaxLevels];
 };
@@ -60,114 +73,136 @@ __device__ __forceinline__ void axis_tap(float pos, int size, int& i0, int& i1, 
   i1 = min(i0 + 1, size - 1);
 }
 
-// One halo row of the window whose first sample is (x0 + c, y): rows are
-// interpolated first, then columns (ops/interp.py sample_grid).
-__device__ __forceinline__ void sample_row(const float* __restrict__ img, int H, int W, float y,
-                                           const int (&xi0)[kHalo], const int (&xi1)[kHalo],
-                                           const float (&fx)[kHalo], float (&out)[kHalo]) {
-  int y0, y1;
-  float fy;
+// One bilinear sample at (x, y): along y first, then x (ops/interp.py
+// sample_grid).
+__device__ __forceinline__ float sample(const float* __restrict__ img, int H, int W, float y,
+                                        float x) {
+  int y0, y1, x0, x1;
+  float fy, fx;
   axis_tap(y, H, y0, y1, fy);
+  axis_tap(x, W, x0, x1, fx);
   const float* r0 = img + (long long)y0 * W;
   const float* r1 = img + (long long)y1 * W;
+  const float left = (1.0f - fy) * __ldg(r0 + x0) + fy * __ldg(r1 + x0);
+  const float right = (1.0f - fy) * __ldg(r0 + x1) + fy * __ldg(r1 + x1);
+  return (1.0f - fx) * left + fx * right;
+}
+
+// Xor butterfly over the warp: every lane ends with the same N sums.
+template <int N>
+__device__ __forceinline__ void warp_allreduce(float (&v)[N]) {
 #pragma unroll
-  for (int c = 0; c < kHalo; ++c) {
-    const float left = (1.0f - fy) * __ldg(r0 + xi0[c]) + fy * __ldg(r1 + xi0[c]);
-    const float right = (1.0f - fy) * __ldg(r0 + xi1[c]) + fy * __ldg(r1 + xi1[c]);
-    out[c] = (1.0f - fx[c]) * left + fx[c] * right;
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int q = 0; q < N; ++q) v[q] += __shfl_xor_sync(kFull, v[q], off);
   }
 }
 
 __global__ void __launch_bounds__(kThreads) klt_pyramid_anchored_kernel(
-    const float* __restrict__ anchors, int anchor_levels, const float* __restrict__ pyr,
-    PyramidGeometry geo, int levels, const float* __restrict__ anchor_uv,
-    const float* __restrict__ guess, const uint8_t* __restrict__ valid, int n, int iterations,
-    float eps2, float scale, float scale_top, int inverse, float min_zncc,
-    float* __restrict__ kp_out, uint8_t* __restrict__ ok_out) {
-  // Each thread reads and writes only its own column: no block barrier.
-  __shared__ float tpl[kHalo * kHalo][kThreads];
-  const int tid = threadIdx.x;
-  const int i = blockIdx.x * kThreads + tid;
-  if (i >= n) return;
+    const float* __restrict__ anchors, int anchor_levels, Pyramid pyr, int levels,
+    const float* __restrict__ anchor_uv, const float* __restrict__ guess,
+    const uint8_t* __restrict__ valid, int n, int iterations, float eps2, float scale,
+    float scale_top, int inverse, float min_zncc, float* __restrict__ kp_out,
+    uint8_t* __restrict__ ok_out, int* __restrict__ gn_iterations) {
+  // Each warp reads and writes only its own rows: no block barrier.
+  __shared__ float s_tpl[kWarpsPerBlock][kWindow];
+  __shared__ float s_win[kWarpsPerBlock][kWindow];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int i = blockIdx.x * kWarpsPerBlock + warp;
+  if (i >= n) return;  // the whole warp leaves together
+  float* tpl = s_tpl[warp];
+  float* win = s_win[warp];
 
   const bool v = valid[i] != 0;
   float k1x = anchor_uv[2 * i] * scale_top, k1y = anchor_uv[2 * i + 1] * scale_top;
   float gx0 = guess[2 * i] * scale_top, gy0 = guess[2 * i + 1] * scale_top;
   float k2x = gx0, k2y = gy0;
   bool succ = v;
+  int iters = 0;
   const float half = (float)kHalo * 0.5f - 0.5f;  // (halo - 1) / 2
 
   for (int level = levels - 1; level >= 0; --level) {
-    const float* img = pyr + geo.offset[level];
-    const int H = geo.height[level], W = geo.width[level];
-    const float* a = anchors + ((long long)i * anchor_levels + level) * (kHalo * kHalo);
+    // Select the level with constant indices: indexing the parameter struct
+    // by `level` would copy it to the stack.
+    const float* img = pyr.level[0];
+    int H = pyr.height[0], W = pyr.width[0];
 #pragma unroll
-    for (int k = 0; k < kHalo * kHalo; ++k) tpl[k][tid] = a[k];
+    for (int l = 1; l < kMaxLevels; ++l) {
+      if (l == level) {
+        img = pyr.level[l];
+        H = pyr.height[l];
+        W = pyr.width[l];
+      }
+    }
+    const float* a = anchors + ((long long)i * anchor_levels + level) * kWindow;
+    __syncwarp();  // the previous level's reads of tpl are done
+    for (int q = lane; q < kWindow; q += 32) tpl[q] = a[q];
+    __syncwarp();
 
     // Inverse compositional: J and H frozen from the template's gradients.
-    float H00 = 0.0f, H01 = 0.0f, H11 = 0.0f;
+    float Hfix[3] = {0.0f, 0.0f, 0.0f};
     if (inverse) {
-#pragma unroll
-      for (int r = 0; r < kPatch; ++r) {
-#pragma unroll
-        for (int c = 0; c < kPatch; ++c) {
-          const float jx = -(0.5f * (tpl[(r + 1) * kHalo + c + 2][tid] - tpl[(r + 1) * kHalo + c][tid]));
-          const float jy = -(0.5f * (tpl[(r + 2) * kHalo + c + 1][tid] - tpl[r * kHalo + c + 1][tid]));
-          H00 += jx * jx;
-          H01 += jx * jy;
-          H11 += jy * jy;
-        }
+      for (int t = lane; t < kTerms; t += 32) {
+        const int r = t / kPatch, c = t - r * kPatch;
+        const int q = (r + 1) * kHalo + c + 1;
+        const float jx = -(0.5f * (tpl[q + 1] - tpl[q - 1]));
+        const float jy = -(0.5f * (tpl[q + kHalo] - tpl[q - kHalo]));
+        Hfix[0] += jx * jx;
+        Hfix[1] += jx * jy;
+        Hfix[2] += jy * jy;
       }
+      warp_allreduce(Hfix);
     }
 
     float dx = k2x - k1x, dy = k2y - k1y;
     float last_cost = INFINITY;
     bool s = v, active = v;
     for (int it = 0; it < iterations && active; ++it) {
+      ++iters;
       const float x0 = (k1x + dx) - half;
       const float y0 = (k1y + dy) - half;
-      int xi0[kHalo], xi1[kHalo];
-      float fx[kHalo];
+      // Unrolled so that a lane's 12 gathers are all in flight at once.
 #pragma unroll
-      for (int c = 0; c < kHalo; ++c) axis_tap(x0 + (float)c, W, xi0[c], xi1[c], fx[c]);
-
-      float ra[kHalo], rb[kHalo], rc[kHalo];
-      sample_row(img, H, W, y0, xi0, xi1, fx, ra);
-      sample_row(img, H, W, y0 + 1.0f, xi0, xi1, fx, rb);
-      float cost = 0.0f, h00 = 0.0f, h01 = 0.0f, h11 = 0.0f, bx = 0.0f, by = 0.0f;
-#pragma unroll
-      for (int r = 0; r < kPatch; ++r) {
-        sample_row(img, H, W, y0 + (float)(r + 2), xi0, xi1, fx, rc);
-#pragma unroll
-        for (int c = 0; c < kPatch; ++c) {
-          const float p2 = rb[c + 1];
-          const float err = tpl[(r + 1) * kHalo + c + 1][tid] - p2;
-          float jx, jy;
-          if (inverse) {
-            jx = -(0.5f * (tpl[(r + 1) * kHalo + c + 2][tid] - tpl[(r + 1) * kHalo + c][tid]));
-            jy = -(0.5f * (tpl[(r + 2) * kHalo + c + 1][tid] - tpl[r * kHalo + c + 1][tid]));
-          } else {
-            jx = -(0.5f * (rb[c + 2] - rb[c]));
-            jy = -(0.5f * (rc[c + 1] - ra[c + 1]));
-            h00 += jx * jx;
-            h01 += jx * jy;
-            h11 += jy * jy;
-          }
-          cost += err * err;
-          bx += -err * jx;
-          by += -err * jy;
-        }
-#pragma unroll
-        for (int c = 0; c < kHalo; ++c) {
-          ra[c] = rb[c];
-          rb[c] = rc[c];
+      for (int j = 0; j < (kWindow + 31) / 32; ++j) {
+        const int q = lane + 32 * j;
+        if (q < kWindow) {
+          const int r = q / kHalo, c = q - r * kHalo;
+          win[q] = sample(img, H, W, y0 + (float)r, x0 + (float)c);
         }
       }
-      if (inverse) {
-        h00 = H00;
-        h01 = H01;
-        h11 = H11;
+      __syncwarp();
+      // cost, h00, h01, h11, bx, by
+      float sum[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int j = 0; j < (kTerms + 31) / 32; ++j) {
+        const int t = lane + 32 * j;
+        if (t >= kTerms) break;
+        const int r = t / kPatch, c = t - r * kPatch;
+        const int q = (r + 1) * kHalo + c + 1;
+        const float err = tpl[q] - win[q];
+        float jx, jy;
+        if (inverse) {
+          jx = -(0.5f * (tpl[q + 1] - tpl[q - 1]));
+          jy = -(0.5f * (tpl[q + kHalo] - tpl[q - kHalo]));
+        } else {
+          jx = -(0.5f * (win[q + 1] - win[q - 1]));
+          jy = -(0.5f * (win[q + kHalo] - win[q - kHalo]));
+          sum[1] += jx * jx;
+          sum[2] += jx * jy;
+          sum[3] += jy * jy;
+        }
+        sum[0] += err * err;
+        sum[4] += -err * jx;
+        sum[5] += -err * jy;
       }
+      __syncwarp();  // win is rewritten by the next iteration
+      warp_allreduce(sum);
+      const float cost = sum[0];
+      const float h00 = inverse ? Hfix[0] : sum[1];
+      const float h01 = inverse ? Hfix[1] : sum[2];
+      const float h11 = inverse ? Hfix[2] : sum[3];
+      const float bx = sum[4], by = sum[5];
       const float det = h00 * h11 - h01 * h01;
       const float inv_det = fabsf(det) > 1e-12f ? 1.0f / (det != 0.0f ? det : 1.0f) : 0.0f;
       const float ux = (h11 * bx - h01 * by) * inv_det;
@@ -204,69 +239,71 @@ __global__ void __launch_bounds__(kThreads) klt_pyramid_anchored_kernel(
 
   if (min_zncc > 0.0f) {
     // ZNCC of the level-0 template core against the patch at the result
-    // (ops/klt.py:371-379); tpl still holds level 0.
-    const float* img = pyr + geo.offset[0];
-    const int H = geo.height[0], W = geo.width[0];
+    // (ops/klt.py:371-379); tpl still holds level 0.  Each lane keeps its
+    // (at most 2) terms in registers between the two passes.
+    const float* img = pyr.level[0];
+    const int H = pyr.height[0], W = pyr.width[0];
     const float hp = (float)kPatch * 0.5f - 0.5f;
-    int xi0[kHalo], xi1[kHalo];
-    float fx[kHalo];
+    float t0[2] = {0.0f, 0.0f}, t1[2] = {0.0f, 0.0f};
+    float m[2] = {0.0f, 0.0f};  // sums of the template core and the patch
 #pragma unroll
-    for (int c = 0; c < kHalo; ++c) axis_tap(k2x - hp + (float)c, W, xi0[c], xi1[c], fx[c]);
-    float cur[kPatch][kHalo];  // columns kPatch.. are sampled (in-bounds) and unused
-    float s0 = 0.0f, s1 = 0.0f;
-#pragma unroll
-    for (int r = 0; r < kPatch; ++r) {
-      sample_row(img, H, W, k2y - hp + (float)r, xi0, xi1, fx, cur[r]);
-#pragma unroll
-      for (int c = 0; c < kPatch; ++c) {
-        s0 += tpl[(r + 1) * kHalo + c + 1][tid];
-        s1 += cur[r][c];
+    for (int j = 0; j < 2; ++j) {
+      const int t = lane + 32 * j;
+      if (t < kTerms) {
+        const int r = t / kPatch, c = t - r * kPatch;
+        t0[j] = tpl[(r + 1) * kHalo + c + 1];
+        t1[j] = sample(img, H, W, k2y - hp + (float)r, k2x - hp + (float)c);
+        m[0] += t0[j];
+        m[1] += t1[j];
       }
     }
-    const float m0 = s0 / (float)(kPatch * kPatch), m1 = s1 / (float)(kPatch * kPatch);
-    float num = 0.0f, q0 = 0.0f, q1 = 0.0f;
+    warp_allreduce(m);
+    const float m0 = m[0] / (float)kTerms, m1 = m[1] / (float)kTerms;
+    float q[3] = {0.0f, 0.0f, 0.0f};  // num, q0, q1
 #pragma unroll
-    for (int r = 0; r < kPatch; ++r) {
-#pragma unroll
-      for (int c = 0; c < kPatch; ++c) {
-        const float c0 = tpl[(r + 1) * kHalo + c + 1][tid] - m0;
-        const float c1 = cur[r][c] - m1;
-        num += c0 * c1;
-        q0 += c0 * c0;
-        q1 += c1 * c1;
+    for (int j = 0; j < 2; ++j) {
+      if (lane + 32 * j < kTerms) {
+        const float c0 = t0[j] - m0, c1 = t1[j] - m1;
+        q[0] += c0 * c1;
+        q[1] += c0 * c0;
+        q[2] += c1 * c1;
       }
     }
-    const float den = sqrtf(q0 * q1 + 1e-6f);
-    succ = succ && (num / den > min_zncc);
+    warp_allreduce(q);
+    const float den = sqrtf(q[1] * q[2] + 1e-6f);
+    succ = succ && (q[0] / den > min_zncc);
   }
-  kp_out[2 * i] = k2x;
-  kp_out[2 * i + 1] = k2y;
-  ok_out[i] = succ ? 1 : 0;
+  if (lane == 0) {
+    kp_out[2 * i] = k2x;
+    kp_out[2 * i + 1] = k2y;
+    ok_out[i] = succ ? 1 : 0;
+    if (gn_iterations != nullptr) atomicAdd(gn_iterations, iters);
+  }
 }
 
 }  // namespace
 
 extern "C" int legoslam_klt_pyramid_anchored(
-    const float* anchors, int anchor_levels, const float* pyr, const long long* level_offset,
+    const float* anchors, int anchor_levels, const float* const* level_ptr,
     const int* level_height, const int* level_width, int levels, const float* anchor_uv,
     const float* guess, const uint8_t* valid, int n, int half_patch, int iterations, float eps2,
     float scale, float scale_top, int inverse, float min_zncc, float* kp_out, uint8_t* ok_out,
-    void* stream) {
+    int* gn_iterations, void* stream) {
   if (half_patch != kHalfPatch || levels < 1 || levels > kMaxLevels || levels > anchor_levels ||
       n < 0) {
     return (int)cudaErrorInvalidValue;
   }
   if (n == 0) return 0;
-  PyramidGeometry geo{};
+  Pyramid pyr{};
   for (int l = 0; l < levels; ++l) {
-    geo.offset[l] = level_offset[l];
-    geo.height[l] = level_height[l];
-    geo.width[l] = level_width[l];
+    pyr.level[l] = level_ptr[l];
+    pyr.height[l] = level_height[l];
+    pyr.width[l] = level_width[l];
   }
-  const int blocks = (n + kThreads - 1) / kThreads;
+  const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
   klt_pyramid_anchored_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      anchors, anchor_levels, pyr, geo, levels, anchor_uv, guess, valid, n, iterations, eps2,
-      scale, scale_top, inverse, min_zncc, kp_out, ok_out);
+      anchors, anchor_levels, pyr, levels, anchor_uv, guess, valid, n, iterations, eps2, scale,
+      scale_top, inverse, min_zncc, kp_out, ok_out, gn_iterations);
   return (int)cudaGetLastError();
 }
 

@@ -13,7 +13,7 @@ or an exception.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -33,9 +33,14 @@ def klt_pyramid_anchored_eager(
     valid: torch.Tensor,
     cfg: klt_ops.KLTConfig = klt_ops.KLTConfig(),
     min_zncc: float = 0.5,
+    gn_iterations: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch anchored pyramid (ops/klt.py:325-380 of the reference)."""
+    """Plain PyTorch anchored pyramid (ops/klt.py:325-380 of the reference).
+    `gn_iterations`, if given, is filled with the GN iterations summed over
+    lanes and levels."""
     levels = cfg.levels
+    if gn_iterations is not None:
+        gn_iterations.zero_()
     scale_top = cfg.scale ** (levels - 1)
     kp1 = anchor_uv * scale_top
     kp2 = kp2_init * scale_top
@@ -43,7 +48,8 @@ def klt_pyramid_anchored_eager(
     success = valid
     for level in range(levels - 1, -1, -1):
         # Each level gets the original `valid`, not the previous success.
-        kp2, success = klt_ops.klt_level_anchored(anchors[:, level], pyr2[level], kp1, kp2, valid, cfg)
+        kp2, success = klt_ops.klt_level_anchored(anchors[:, level], pyr2[level], kp1, kp2, valid, cfg,
+                                                  gn_iterations)
         if level > 0:
             kp1 = kp1 / cfg.scale
             guess = guess / cfg.scale
@@ -60,7 +66,7 @@ def _lib():
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, i, p, p, p, p, i, p, p, p, i, i, i, f, f, f, i, f, p, p, p]
+        fn.argtypes = [p, i, p, p, p, i, p, p, p, i, i, i, f, f, f, i, f, p, p, p, p]
     return lib
 
 
@@ -77,9 +83,11 @@ def klt_pyramid_anchored_kernel(
     valid: torch.Tensor,
     cfg: klt_ops.KLTConfig = klt_ops.KLTConfig(),
     min_zncc: float = 0.5,
+    gn_iterations: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of csrc/klt_anchored.cu: all `cfg.levels` levels and the
-    ZNCC gate.  Same contract as `klt_pyramid_anchored_eager`."""
+    ZNCC gate.  Same contract as `klt_pyramid_anchored_eager`; the levels
+    are passed as separate pointers, so each must be contiguous."""
     n = kp2_init.shape[0]
     levels = cfg.levels
     dev = kp2_init.device
@@ -95,14 +103,15 @@ def klt_pyramid_anchored_kernel(
         _require(t.device == dev and t.is_contiguous(), f"{name} must be contiguous on {dev}")
     for name, t in (("anchors", anchors), ("anchor_uv", anchor_uv), ("kp2_init", kp2_init)):
         _require(t.dtype == torch.float32, f"{name} must be float32")
-    for lvl in pyr2[:levels]:
-        _require(lvl.dim() == 2 and lvl.dtype == torch.float32 and lvl.device == dev,
-                 "pyramid levels must be 2-D float32 on the same device")
+    for k, lvl in enumerate(pyr2[:levels]):
+        _require(lvl.dim() == 2 and lvl.dtype == torch.float32 and lvl.device == dev
+                 and lvl.is_contiguous(), f"pyramid level {k} must be a contiguous 2-D float32 tensor on {dev}")
+    if gn_iterations is not None:
+        _require(gn_iterations.shape == (1,) and gn_iterations.dtype == torch.int32
+                 and gn_iterations.device == dev, f"gn_iterations must be (1,) int32 on {dev}")
+        gn_iterations.zero_()
 
-    packed = torch.cat([lvl.reshape(-1) for lvl in pyr2[:levels]])
-    sizes = [lvl.numel() for lvl in pyr2[:levels]]
-    offsets = [sum(sizes[:k]) for k in range(levels)]
-    off_arr = (ctypes.c_longlong * levels)(*offsets)
+    lvl_ptr = (ctypes.c_void_p * levels)(*[lvl.data_ptr() for lvl in pyr2[:levels]])
     h_arr = (ctypes.c_int * levels)(*[lvl.shape[0] for lvl in pyr2[:levels]])
     w_arr = (ctypes.c_int * levels)(*[lvl.shape[1] for lvl in pyr2[:levels]])
     kp_out = torch.empty((n, 2), dtype=torch.float32, device=dev)
@@ -110,11 +119,12 @@ def klt_pyramid_anchored_kernel(
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _lib()
     rc = lib.legoslam_klt_pyramid_anchored(
-        anchors.data_ptr(), anchors.shape[1], packed.data_ptr(), off_arr, h_arr, w_arr, levels,
+        anchors.data_ptr(), anchors.shape[1], lvl_ptr, h_arr, w_arr, levels,
         anchor_uv.data_ptr(), kp2_init.data_ptr(), valid.data_ptr(), n, cfg.half_patch,
         cfg.iterations, float(cfg.eps * cfg.eps), float(cfg.scale),
         float(cfg.scale ** (levels - 1)), int(bool(cfg.inverse)), float(min_zncc),
-        kp_out.data_ptr(), ok_out.data_ptr(), stream,
+        kp_out.data_ptr(), ok_out.data_ptr(),
+        None if gn_iterations is None else gn_iterations.data_ptr(), stream,
     )
     _build.check(lib, rc, "klt_pyramid_anchored_kernel")
     klt_pyramid_anchored_kernel.launches += 1
@@ -132,15 +142,17 @@ def klt_pyramid_anchored(
     valid: torch.Tensor,
     cfg: klt_ops.KLTConfig = klt_ops.KLTConfig(),
     min_zncc: float = 0.5,
+    gn_iterations: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dispatch on `cfg.backend` ("auto" | "kernel" | "eager") and the device."""
     kind = kp2_init.device.type
+    args = (anchors, anchor_uv, pyr2, kp2_init, valid, cfg, min_zncc, gn_iterations)
     if cfg.backend == "eager":
-        return klt_pyramid_anchored_eager(anchors, anchor_uv, pyr2, kp2_init, valid, cfg, min_zncc)
+        return klt_pyramid_anchored_eager(*args)
     if cfg.backend not in ("auto", "kernel"):
         raise ValueError(f"unknown klt_backend {cfg.backend!r} (auto | kernel | eager)")
     if kind == "cuda":
-        return klt_pyramid_anchored_kernel(anchors, anchor_uv, pyr2, kp2_init, valid, cfg, min_zncc)
+        return klt_pyramid_anchored_kernel(*args)
     if kind == "cpu" and cfg.backend == "auto":
-        return klt_pyramid_anchored_eager(anchors, anchor_uv, pyr2, kp2_init, valid, cfg, min_zncc)
+        return klt_pyramid_anchored_eager(*args)
     raise RuntimeError(f"klt backend {cfg.backend!r} has no path for {kind} tensors")

@@ -5,12 +5,14 @@ PyTorch version.
 `estimate_pose_eager` is solver/lm.py estimate_pose (any device);
 `estimate_pose` picks by the tensors' device alone: the kernel for CUDA
 tensors, the plain version for CPU tensors, an exception otherwise.
+All three take an optional `attempts` tensor, (outer_iterations,) int32,
+which is filled with the LM attempts of each round (the work count).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -18,6 +20,8 @@ from legoslam_tpu_torch.kernels import _build
 from legoslam_tpu_torch.solver import lm, reprojection
 
 estimate_pose_eager = lm.estimate_pose
+# csrc/pose.cu keeps the launch's edges in shared memory: kMaxEdges.
+MAX_EDGES = 8192
 
 
 def _lib():
@@ -26,7 +30,7 @@ def _lib():
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, i, f, f, f, f, f, i, i, i, i, i, f, f, f, i, f, p, p, p, p]
+        fn.argtypes = [p, p, p, p, i, f, f, f, f, f, i, i, i, i, i, f, f, f, i, f, p, p, p, p, p]
     return lib
 
 
@@ -47,8 +51,10 @@ def estimate_pose_kernel(
     drop_kernel_after: int = 2,
     exclude_outliers: bool = True,
     cfg: lm.LMConfig = lm.LMConfig(),
+    attempts: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One launch of csrc/pose.cu; same contract as `estimate_pose_eager`."""
+    """One launch of csrc/pose.cu; same contract as `estimate_pose_eager`,
+    for at most MAX_EDGES edges."""
     dev = T_init.device
     E = p_world.shape[0]
     _require(dev.type == "cuda", f"needs CUDA tensors, got {dev}")
@@ -61,6 +67,12 @@ def estimate_pose_kernel(
     for name, t in (("T_init", T_init), ("p_world", p_world), ("uv", uv), ("valid", valid)):
         _require(t.device == dev and t.is_contiguous(), f"{name} must be contiguous on {dev}")
 
+    if attempts is not None:
+        _require(attempts.shape == (outer_iterations,) and attempts.dtype == torch.int32
+                 and attempts.device == dev and attempts.is_contiguous(),
+                 f"attempts must be ({outer_iterations},) int32 on {dev}")
+    _require(E <= MAX_EDGES, f"at most {MAX_EDGES} edges, got {E}")
+
     T_out = torch.empty((4, 4), dtype=torch.float32, device=dev)
     inlier = torch.empty((E,), dtype=torch.bool, device=dev)
     n_in = torch.empty((), dtype=torch.int32, device=dev)
@@ -72,7 +84,8 @@ def estimate_pose_kernel(
         drop_kernel_after, int(bool(exclude_outliers)), int(cfg.strategy == "strategy1"),
         float(cfg.tau), float(cfg.max_diag_cap), float(cfg.diff_chi_threshold),
         cfg.false_cnt_threshold, float(cfg.init_lambda),
-        T_out.data_ptr(), inlier.data_ptr(), n_in.data_ptr(), stream,
+        T_out.data_ptr(), inlier.data_ptr(), n_in.data_ptr(),
+        None if attempts is None else attempts.data_ptr(), stream,
     )
     _build.check(lib, rc, "estimate_pose_kernel")
     estimate_pose_kernel.launches += 1

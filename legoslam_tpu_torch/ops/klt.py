@@ -15,7 +15,7 @@ dispatches on `KLTConfig.backend` and the tensors' device to the CUDA kernel
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -34,13 +34,16 @@ class KLTConfig(NamedTuple):
     backend: str = "auto"
 
 
-def _gn_loop(iterations: int, body, state):
+def _gn_loop(iterations: int, body, state, counter: Optional[torch.Tensor] = None):
     """Run the per-lane GN body until every lane is inactive or the cap.
 
     Inactive lanes are frozen by the body, so exiting when the last lane
-    stops gives what a per-lane `break` gives."""
+    stops gives what a per-lane `break` gives.  `counter`, if given, gains
+    the number of lane-iterations (lanes active at the start of each pass)."""
     i = 0
     while i < iterations and bool(state[3].any()):
+        if counter is not None:
+            counter += state[3].sum(dtype=counter.dtype)
         state = body(state)
         i += 1
     return state
@@ -72,11 +75,13 @@ def klt_level_anchored(
     kp2: torch.Tensor,
     valid: torch.Tensor,
     cfg: KLTConfig = KLTConfig(),
+    gn_iterations: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Single-level GN flow against fixed template patches.
 
     `anchor` is (N, P+2, P+2) halo patches; `kp1` anchors the flow origin
-    (kp2 = kp1 + d).  Returns (kp2_out (N, 2), success (N,))."""
+    (kp2 = kp1 + d).  `gn_iterations`, if given, gains the GN iterations
+    summed over lanes.  Returns (kp2_out (N, 2), success (N,))."""
     halo = 2 * cfg.half_patch + 3
     H, W = img2.shape
     eps2 = cfg.eps * cfg.eps
@@ -116,7 +121,7 @@ def klt_level_anchored(
         return d, last_cost, succ, active
 
     inf = torch.full(kp1.shape[:1], float("inf"), dtype=kp1.dtype, device=kp1.device)
-    d, _, succ, _ = _gn_loop(cfg.iterations, body, (kp2 - kp1, inf, valid, valid))
+    d, _, succ, _ = _gn_loop(cfg.iterations, body, (kp2 - kp1, inf, valid, valid), gn_iterations)
     kp2_out = kp1 + d
     in_img = (kp2_out[:, 0] >= 0) & (kp2_out[:, 0] < W) & (kp2_out[:, 1] >= 0) & (kp2_out[:, 1] < H)
     return kp2_out, succ & in_img & valid
@@ -140,6 +145,7 @@ def klt_pyramid_anchored(
     valid: torch.Tensor,
     cfg: KLTConfig = KLTConfig(),
     min_zncc: float = 0.5,
+    gn_iterations: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Coarse-to-fine tracking of anchored templates, then the ZNCC gate.
 
@@ -150,8 +156,11 @@ def klt_pyramid_anchored(
       kp2_init: (N, 2) initial guesses in the current image.
       valid: (N,) lanes to track.
       min_zncc: final appearance gate (0 disables).
+      gn_iterations: optional (1,) int32 tensor on the device, filled with
+        the GN iterations summed over lanes and levels (the work count).
 
     Dispatches per `cfg.backend` and the device (kernels/klt.py)."""
     from legoslam_tpu_torch.kernels import klt as klt_kernels
 
-    return klt_kernels.klt_pyramid_anchored(anchors, anchor_uv, pyr2, kp2_init, valid, cfg, min_zncc)
+    return klt_kernels.klt_pyramid_anchored(anchors, anchor_uv, pyr2, kp2_init, valid, cfg, min_zncc,
+                                            gn_iterations)

@@ -56,7 +56,7 @@ class FrameOutput:
     n_new_landmarks: Any = 0                     # triangulated this frame (tensor)
 
 
-def initial_carry(cfg: frontend_mod.FrontendConfig, shape, dtype=torch.float32, device="cpu") -> VOCarry:
+def initial_carry(cfg: frontend_mod.FrontendConfig, shape, dtype, device) -> VOCarry:
     H, W = shape
     levels = cfg.klt.levels
     pyr = tuple(torch.zeros((H // (2**i), W // (2**i)), dtype=dtype, device=device) for i in range(levels))
@@ -133,7 +133,11 @@ def process_frame(
 
 
 class VisualOdometry:
-    """Host-side driver (the reference's `VisualOdometry` API)."""
+    """Host-side frame loop (the reference's `VisualOdometry` API).
+
+    Runs on the CUDA card unless `device` says otherwise; `init()` raises
+    where the device is a card and none is present, so the default never
+    runs on the CPU.  `device="cpu"` runs the kernels' plain versions."""
 
     def __init__(
         self,
@@ -141,7 +145,7 @@ class VisualOdometry:
         config: Optional[Config] = None,
         dataset: Any = None,
         ba_mode: Optional[str] = None,
-        device: Any = "cpu",
+        device: Any = "cuda",
     ):
         self.config = config or (Config.from_yaml(config_path) if config_path else Config())
         self.dataset = dataset
@@ -168,6 +172,9 @@ class VisualOdometry:
     def init(self) -> bool:
         if self.dataset is None:
             raise NotImplementedError("the KITTI loader is not ported yet; pass a dataset")
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("VisualOdometry: no CUDA device for device='cuda'; "
+                               "pass device='cpu' to run the plain versions on the CPU")
         if not self.dataset.init():
             return False
         self.rig = self.dataset.rig.to(self.device)
@@ -190,7 +197,7 @@ class VisualOdometry:
         img_l = torch.as_tensor(np.asarray(frame.left, np.float32)).to(self.device)
         img_r = torch.as_tensor(np.asarray(frame.right, np.float32)).to(self.device)
         if self.carry is None:
-            self.carry = initial_carry(self.frontend_cfg, frame.left.shape, device=self.device)
+            self.carry = initial_carry(self.frontend_cfg, frame.left.shape, torch.float32, self.device)
         self.carry, out = process_frame(self.frontend_cfg, self.rig, self.carry, img_l, img_r, int(frame.frame_id))
         self.outputs.append(out)
         self.frame_ids.append(frame.frame_id)

@@ -15,7 +15,7 @@ whole `estimate_pose` as one kernel (csrc/pose.cu via kernels/pose.py).
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -183,10 +183,12 @@ def estimate_pose(
     drop_kernel_after: int = 2,
     exclude_outliers: bool = True,
     cfg: LMConfig = LMConfig(),
+    attempts: Optional[torch.Tensor] = None,
 ):
     """`Frontend::EstimateCurrentPose` (frontend_g2o.cpp:157-245): rounds of
     {reset to the prior, one LM solve, reclassify outliers by robust chi2 >
-    chi2_th}; Huber is dropped after round `drop_kernel_after`.
+    chi2_th}; Huber is dropped after round `drop_kernel_after`.  If given,
+    `attempts` ((outer_iterations,) int) gets each round's LM attempts.
 
     Returns (T, inlier_mask (E,), num_inliers () int32)."""
     outlier = torch.zeros_like(valid)
@@ -194,7 +196,9 @@ def estimate_pose(
     for it in range(outer_iterations):
         kernel = robust.HUBER if it <= drop_kernel_after else robust.TRIVIAL
         use = valid & ~outlier if exclude_outliers else valid
-        T, _ = solve_pose(intr, T_init, p_world, uv, use, kernel=kernel, delta=chi2_th, cfg=cfg)
+        T, res = solve_pose(intr, T_init, p_world, uv, use, kernel=kernel, delta=chi2_th, cfg=cfg)
+        if attempts is not None:
+            attempts[it] = res.attempts
         outlier = pose_edge_chi2(intr, T, p_world, uv, kernel, chi2_th) > chi2_th
     inlier = valid & ~outlier
     return T, inlier, inlier.sum(dtype=torch.int32)

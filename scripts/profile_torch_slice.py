@@ -8,7 +8,8 @@ Renders the bench plane world (bench.py's sequence at 188x620), runs
    into tracking-only frames and keyframe frames;
 2. a torch.profiler table over the frames after warm-up (a second run), with
    the device-busy share: summed device time of all kernels over the
-   window's wall time, and the kernel launches per frame.
+   window's wall time, the kernel launches per frame, and the device time
+   per launch of the two hand-written kernels.
 Every number is printed beside the card's name and power limit.
 """
 
@@ -105,6 +106,11 @@ def main() -> None:
     print(f"profiled {n} frames: wall {wall_us / n / 1e3:.3f} ms/frame (profiler on), device busy "
           f"{device_us / n / 1e3:.3f} ms/frame = {100.0 * device_us / wall_us:.1f}% of wall, "
           f"{launches / n:.0f} kernel launches/frame ({smi})")
+    for name in ("klt_pyramid_anchored_kernel", "estimate_pose_kernel"):
+        rows = [e for e in events if e.device_type == DeviceType.CUDA and name in e.key]
+        count = sum(e.count for e in rows)
+        us = sum(e.self_device_time_total for e in rows)
+        print(f"{name}: {count} launches, {us / max(count, 1):.3f} us/launch of device time ({smi})")
     print(events.table(sort_by="self_device_time_total", row_limit=25))
     print(events.table(sort_by="self_cpu_time_total", row_limit=25))
 

@@ -112,3 +112,22 @@ def test_dispatch_on_cpu():
         klt_k.klt_pyramid_anchored_kernel(*args, t_klt.KLTConfig(levels=2))
     with pytest.raises(ValueError):
         t_klt.klt_pyramid_anchored(*args, t_klt.KLTConfig(levels=2, backend="xla"))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_gn_iteration_count(inverse):
+    """Asking for the GN lane-iterations changes no output; every valid lane
+    runs 1 .. iterations per level, and exactly 1 when capped at 1."""
+    levels = 3
+    img1, img2, kp1, valid = _scene(5, n=48)
+    args = (t(_anchors(img1, kp1, levels)), t(kp1), tuple(t_pyr.build_pyramid(t(img2), levels)),
+            t(kp1 + np.float32(1.0)), t(valid))
+    cfg = t_klt.KLTConfig(levels=levels, inverse=inverse)
+    kp_a, ok_a = klt_k.klt_pyramid_anchored_eager(*args, cfg)
+    count = torch.full((1,), 7, dtype=torch.int32)
+    kp_b, ok_b = t_klt.klt_pyramid_anchored(*args, cfg, gn_iterations=count)
+    assert torch.equal(kp_a, kp_b) and torch.equal(ok_a, ok_b)
+    lanes = int(valid.sum()) * levels
+    assert lanes < int(count) <= lanes * cfg.iterations
+    klt_k.klt_pyramid_anchored_eager(*args, cfg._replace(iterations=1), gn_iterations=count)
+    assert int(count) == lanes

@@ -109,3 +109,21 @@ def test_accept_rule_follows_lm_not_pallas():
     assert c_p > 1.5 * c_x  # the two reference paths differ here
     assert abs(c_t - c_x) <= 1e-3 * c_x
     assert int(n_t) == int(n_x) > int(n_p)
+
+
+@pytest.mark.parametrize("strategy,iterations", [("default", 10), ("strategy1", 10), ("default", 0)])
+def test_attempt_counts(strategy, iterations):
+    """Asking for the LM attempts changes no output, and each round's count
+    respects the limits: 1 .. iterations x false_cnt_threshold (0 without
+    iterations), so the launch's total is at most rounds x that."""
+    T_prior, P, uv, valid, _ = _problem(0)
+    cfg = t_lm.LMConfig(strategy=strategy, iterations=iterations)
+    args = (T_INTR, t(T_prior), t(P), t(uv), t(valid))
+    T_a, in_a, n_a = pose_k.estimate_pose_eager(*args, cfg=cfg)
+    attempts = torch.full((4,), -1, dtype=torch.int32)
+    T_b, in_b, n_b = pose_k.estimate_pose(*args, cfg=cfg, attempts=attempts)
+    assert torch.equal(T_a, T_b) and torch.equal(in_a, in_b) and int(n_a) == int(n_b)
+    a = attempts.numpy()
+    cap = iterations * cfg.false_cnt_threshold
+    assert (a >= min(1, iterations)).all() and (a <= cap).all()
+    assert a.sum() <= 4 * cap

@@ -109,7 +109,7 @@ def test_state_handover(reference):
 
 def test_whole_slice(reference):
     ds = _dataset(TDataset)
-    vo = VisualOdometry(config=Config(OVERRIDES), dataset=ds, ba_mode="off")
+    vo = VisualOdometry(config=Config(OVERRIDES), dataset=ds, ba_mode="off", device="cpu")
     assert vo.init()
     vo.run()
     np.testing.assert_array_equal(vo.statuses(), reference["statuses"])
@@ -128,11 +128,11 @@ def test_whole_slice(reference):
 def test_refuses_window_ba(mode):
     """BA modes are refused, not run without BA (the default mode is inline)."""
     with pytest.raises(NotImplementedError, match="window BA"):
-        VisualOdometry(config=Config(OVERRIDES), dataset=_dataset(TDataset), ba_mode=mode)
+        VisualOdometry(config=Config(OVERRIDES), dataset=_dataset(TDataset), ba_mode=mode, device="cpu")
 
 
 def test_save_trajectory(tmp_path):
-    vo = VisualOdometry(config=Config(OVERRIDES), dataset=_dataset(TDataset), ba_mode="off")
+    vo = VisualOdometry(config=Config(OVERRIDES), dataset=_dataset(TDataset), ba_mode="off", device="cpu")
     assert vo.init()
     for _ in range(2):
         assert vo.step()
@@ -142,3 +142,18 @@ def test_save_trajectory(tmp_path):
     assert rows.shape == (2, 12)
     np.testing.assert_allclose(rows.reshape(2, 3, 4), vo.trajectory_T_wc()[:, :3, :], atol=1e-6)
     assert vo.num_keyframes() == 2 and torch.is_tensor(vo.outputs[0].T_cw)
+
+
+def test_default_device_is_the_card():
+    vo = VisualOdometry(config=Config(OVERRIDES), dataset=_dataset(TDataset), ba_mode="off")
+    assert vo.device.type == "cuda"
+
+
+def test_default_device_never_runs_on_cpu(monkeypatch):
+    """Where no card is present, init() with the default device raises
+    instead of running the frames on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    vo = VisualOdometry(config=Config(OVERRIDES), dataset=_dataset(TDataset), ba_mode="off")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        vo.init()
+    assert vo.carry is None and not vo.outputs
