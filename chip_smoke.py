@@ -12,14 +12,29 @@
    the roofline bound of that work on this card, and median times from
    CUDA events (`device_ms`: the kernel's device time per launch;
    `wall_ms`: a whole call of the plain version, host syncs included).
-4. The slice: 40 frames of the plane-world benchmark sequence through
-   `VisualOdometry(ba_mode="off")` on the card; every frame must track
-   (TRACKING_GOOD), 7-9 keyframes, both kernels launched on every tracking
-   frame, ATE < 0.05 m.
+4. The BA-off slice: 40 frames of the plane-world benchmark sequence
+   through `VisualOdometry(ba_mode="off")` on the card; every frame must
+   track (TRACKING_GOOD), 7-9 keyframes, both kernels launched on every
+   tracking frame, ATE < 0.05 m.
+5. The BA-inline slice, the default path: the same 40 frames through
+   `VisualOdometry(config)` with no `ba_mode`, so window BA runs after every
+   keyframe (`backend.ba_step`, PyTorch ops on the card).  Every frame must
+   track, every keyframe frame must carry a finite BA chi, the keyframe
+   count must be within 1 of the JAX reference's, both kernels launched on
+   every tracking frame, ATE < 0.05 m.  Prints ms/frame split into tracking
+   and keyframe frames, and keyframe frames into BA and the rest.
+6. Window BA at full width (K=16 window slots, L=2048 active landmarks,
+   E=5120 edges, 512 feature lanes, 131,072 landmarks): the map of step 5
+   just before its last keyframe's BA goes through `backend.ba_step` on the
+   card and, copied, on the CPU (the same port code); final chi, keyframe
+   poses, outlier verdicts and observation counts must agree (bars below).
+   Prints the card's wall ms per `ba_step`, LM iterations and attempts, the
+   host reads counted by CUDA's sync debug mode, and the landmark counts.
 
-Prints one JSON line of per-kernel results, then, as the last line,
-{"ok": true, "device": {...}}.  Any failed check raises, so the script exits
-non-zero and prints no result line.
+The kernel launch counts are set to 0 just before each slice and read just
+after it.  Prints one JSON line of per-kernel results, then, as the last
+line, {"ok": true, "device": {...}}.  Any failed check raises, so the script
+exits non-zero and prints no result line.
 """
 
 from __future__ import annotations
@@ -28,6 +43,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -43,7 +59,20 @@ KLT_MASK_AGREE = 0.99     # success masks
 KLT_POS_ATOL = 1e-2       # px, where both succeed
 POSE_T_ATOL = 1e-3        # pose entries
 POSE_INLIER_AGREE = 0.99
-ATE_MAX = 0.05            # m, the JAX reference gets 0.0047 m on these frames
+ATE_MAX = 0.05            # m, the JAX reference gets 0.0047 m on these frames (BA off)
+# The JAX reference's BA-inline run of the same 40 frames (VisualOdometry,
+# ba_mode inline, ba_assembly_precision f32, on the CPU; printed by
+# `python -m tests.ba_parity_report --bench-world`): 8 keyframes, every
+# frame TRACKING_GOOD, ATE 0.019379 m.
+REF_INLINE_KEYFRAMES = 8
+REF_INLINE_ATE = 0.019379
+# Window BA, card against CPU on the same map (same port code; the sums of
+# `index_add_` run in another order on the card): final chi relative, poses
+# relative to the oldest keyframe (every window pose is free, so the
+# window's rigid placement is held only by the LM damping), verdict masks.
+BA_CHI_RTOL = 1e-3
+BA_POSE_ATOL = 1e-3
+BA_MASK_AGREE = 0.99
 # Work counts, kernel vs plain version.  A lane moved by one GN step moves
 # the KLT count by one: max(atol, rtol * plain).  Near convergence a pose
 # step's chi change is at the float rounding level, so one run may accept it
@@ -287,17 +316,26 @@ def main() -> None:
                     "max_abs_err": terr, "ms": ms, "plain_ms": plain, "bound_ms": k2_bound, "bound_by": k2_kind,
                     "work": {"lm_attempts": sum(a_k), "plain": sum(a_e)}})
 
-    # --- 4. the slice -------------------------------------------------------
+    # --- 4. the BA-off slice -------------------------------------------------
+    from legoslam_tpu_torch.pipeline import backend
+    from legoslam_tpu_torch.pipeline.state import Capacities
     from legoslam_tpu_torch.pipeline.visual_odometry import FrontendStatus, VisualOdometry
     from legoslam_tpu_torch.utils import evaluation
     from legoslam_tpu_torch.utils.config import Config
+
+    def reset_counts():
+        klt_k.klt_pyramid_anchored_kernel.launches = 0
+        pose_k.estimate_pose_kernel.launches = 0
+
+    def read_counts():
+        return {"klt_pyramid_anchored": klt_k.klt_pyramid_anchored_kernel.launches,
+                "estimate_pose": pose_k.estimate_pose_kernel.launches}
 
     config = Config({"stereo_depth_inferior_limit": 2.0, "stereo_depth_superior_limit": 60.0})
     vo = VisualOdometry(config=config, dataset=_FrameList(frames, ds.rig), ba_mode="off")  # the card by default
     check(vo.device.type == "cuda", f"VisualOdometry defaults to {vo.device}")
     check(vo.init(), "VisualOdometry.init failed")
-    klt_k.klt_pyramid_anchored_kernel.launches = 0
-    pose_k.estimate_pose_kernel.launches = 0
+    reset_counts()
     for _ in range(WARMUP):
         vo.step()
     torch.cuda.synchronize()
@@ -306,27 +344,138 @@ def main() -> None:
         pass
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"klt_pyramid_anchored": klt_k.klt_pyramid_anchored_kernel.launches,
-                "estimate_pose": pose_k.estimate_pose_kernel.launches}
+    launches_off = read_counts()
     statuses = vo.statuses()
     n_kf = int(vo.keyframe_flags().sum())
     T_wc = vo.trajectory_T_wc()
     ate = evaluation.ate_rmse(T_wc[:, :3, 3], ds.gt_T_wc[:N_FRAMES, :3, 3])
     n_track = N_FRAMES - 1
     timed = N_FRAMES - WARMUP
-    print(f"slice: {N_FRAMES} frames, statuses {statuses.tolist()}", flush=True)
-    print(f"slice: keyframes {n_kf} (JAX reference: 8), launches {launches} (tracking frames {n_track}), "
+    print(f"slice off: {N_FRAMES} frames, statuses {statuses.tolist()}", flush=True)
+    print(f"slice off: keyframes {n_kf} (JAX reference: 8), launches {launches_off} (tracking frames {n_track}), "
           f"ATE {ate:.5f} m (bar {ATE_MAX}; JAX reference 0.0047 m)", flush=True)
-    print(f"slice: {1e3 * dt / timed:.3f} ms/frame, {timed / dt:.2f} frames/s over frames {WARMUP}..{N_FRAMES - 1} "
+    print(f"slice off: {1e3 * dt / timed:.3f} ms/frame, {timed / dt:.2f} frames/s over frames {WARMUP}..{N_FRAMES - 1} "
           f"on {kind} ({smi})", flush=True)
-    check(bool((statuses == FrontendStatus.TRACKING_GOOD).all()), "a frame did not track")
-    check(7 <= n_kf <= 9, f"{n_kf} keyframes, expected 7-9")
-    check(all(n >= n_track for n in launches.values()), "a kernel was not launched on every tracking frame")
-    check(bool(np.isfinite(T_wc).all()), "non-finite trajectory")
-    check(ate < ATE_MAX, f"ATE {ate:.4f} m")
+    check(bool((statuses == FrontendStatus.TRACKING_GOOD).all()), "a frame did not track (BA off)")
+    check(7 <= n_kf <= 9, f"{n_kf} keyframes, expected 7-9 (BA off)")
+    check(all(n >= n_track for n in launches_off.values()), "a kernel was not launched on every tracking frame")
+    check(bool(np.isfinite(T_wc).all()), "non-finite trajectory (BA off)")
+    check(ate < ATE_MAX, f"ATE {ate:.4f} m (BA off)")
+
+    # --- 5. the BA-inline slice, the default path ---------------------------
+    # Each ba_step of the driver is timed between two synchronizes, and the
+    # arguments of the last one (the map just before its BA) are kept.
+    ba_step = backend.ba_step
+    ba_calls = []
+
+    def timed_ba_step(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ba_step(*args)
+        torch.cuda.synchronize()
+        ba_calls.append((1e3 * (time.perf_counter() - t0), args))
+        return out
+
+    vo = VisualOdometry(config=config, dataset=_FrameList(frames, ds.rig))
+    check(vo.ba_mode == "inline" and vo.device.type == "cuda", f"default ba_mode {vo.ba_mode}, device {vo.device}")
+    check(vo.init(), "VisualOdometry.init failed (BA inline)")
+    backend.ba_step = timed_ba_step
+    try:
+        reset_counts()
+        frame_ms = []
+        for _ in range(N_FRAMES):
+            t0 = time.perf_counter()
+            check(vo.step(), "the dataset ended early")
+            torch.cuda.synchronize()
+            frame_ms.append(1e3 * (time.perf_counter() - t0))
+        launches_inline = read_counts()
+    finally:
+        backend.ba_step = ba_step
+    statuses = vo.statuses()
+    kf = vo.keyframe_flags()
+    n_kf = int(kf.sum())
+    T_wc = vo.trajectory_T_wc()
+    ate_inline = evaluation.ate_rmse(T_wc[:, :3, 3], ds.gt_T_wc[:N_FRAMES, :3, 3])
+    ba_chi = np.asarray([float(o.ba_chi) for o in vo.outputs])
+    check(len(ba_calls) == n_kf, f"{len(ba_calls)} BA calls for {n_kf} keyframes")
+    check(all(o.ba.chi.is_cuda for o in vo.outputs) and vo.carry.wmap.lm_pos.is_cuda, "BA left the card")
+    ba_ms = dict(zip(np.nonzero(kf)[0].tolist(), (c[0] for c in ba_calls)))
+    track = [frame_ms[i] for i in range(WARMUP, N_FRAMES) if not kf[i]]
+    kfs = [i for i in range(WARMUP, N_FRAMES) if kf[i]]
+    print(f"slice inline: {N_FRAMES} frames, statuses {statuses.tolist()}", flush=True)
+    print(f"slice inline: keyframes {n_kf} (JAX reference: {REF_INLINE_KEYFRAMES}), BA chi on keyframe frames "
+          f"{[round(float(c), 4) for c in ba_chi[kf]]}, launches {launches_inline} (tracking frames {n_track}), "
+          f"ATE {ate_inline:.5f} m (bar {ATE_MAX}; JAX reference {REF_INLINE_ATE} m)", flush=True)
+    print(f"slice inline: {np.mean(frame_ms[WARMUP:]):.3f} ms/frame over frames {WARMUP}..{N_FRAMES - 1} "
+          f"(each ends in a synchronize); tracking frames n={len(track)} median {np.median(track):.3f} ms; "
+          f"keyframe frames n={len(kfs)} median {np.median([frame_ms[i] for i in kfs]):.3f} ms = BA median "
+          f"{np.median([ba_ms[i] for i in kfs]):.3f} ms + rest median "
+          f"{np.median([frame_ms[i] - ba_ms[i] for i in kfs]):.3f} ms; every ba_step (ms) "
+          f"{[round(c[0], 3) for c in ba_calls]} on {kind} ({smi})", flush=True)
+    check(bool((statuses == FrontendStatus.TRACKING_GOOD).all()), "a frame did not track (BA inline)")
+    check(bool(np.isfinite(ba_chi[kf]).all()), "a keyframe frame has no finite BA chi")
+    check(abs(n_kf - REF_INLINE_KEYFRAMES) <= 1, f"{n_kf} keyframes, JAX reference {REF_INLINE_KEYFRAMES}")
+    check(all(n >= n_track for n in launches_inline.values()),
+          "a kernel was not launched on every tracking frame (BA inline)")
+    check(bool(np.isfinite(T_wc).all()), "non-finite trajectory (BA inline)")
+    check(ate_inline < ATE_MAX, f"ATE {ate_inline:.4f} m (BA inline)")
+
+    # --- 6. window BA at full width, card against CPU -----------------------
+    cfg_b, rig_b, wmap_b, ba_cfg_b = ba_calls[-1][1]
+    check(cfg_b.caps == Capacities(), f"BA capacities {cfg_b.caps} are not the defaults")
+    check(wmap_b.kf_pose.is_cuda, "the BA map is not on the card")
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            map_g, st_g = backend.ba_step(cfg_b, rig_b, wmap_b, ba_cfg_b)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    host_reads = sum("synchroniz" in str(w.message) for w in caught)
+    map_c, st_c = backend.ba_step(cfg_b, rig_b.to("cpu"), wmap_b.to("cpu"), ba_cfg_b)
+    ms_ba = wall_ms(lambda: backend.ba_step(cfg_b, rig_b, wmap_b, ba_cfg_b), 5)
+    chi_g, chi_c = float(st_g.chi), float(st_c.chi)
+    valid = wmap_b.kf_valid.cpu().numpy()
+    oldest = int(np.argmax(valid))
+
+    def relative(T):
+        T = T.double().cpu().numpy()
+        return (T @ np.linalg.inv(T[oldest]))[valid]
+
+    pose_err = float(np.abs(relative(map_g.kf_pose) - relative(map_c.kf_pose)).max())
+    pose_abs = float((map_g.kf_pose.cpu() - map_c.kf_pose).abs().max())
+    agree = np.ones(tuple(wmap_b.kf_lm.shape), bool)
+    mask_agree = []
+    for name in ("kf_obs_left", "kf_obs_right"):
+        a, b = getattr(map_g, name).cpu().numpy(), getattr(map_c, name).numpy()
+        mask_agree.append(float((a == b).mean()))
+        agree &= a == b
+    kf_lm = wmap_b.kf_lm.cpu().numpy()
+    ids = kf_lm[agree & (kf_lm >= 0)]
+    obs_equal = bool((map_g.lm_obs.cpu().numpy()[ids] == map_c.lm_obs.numpy()[ids]).all())
+    n_active, n_dropped = int(st_g.n_active_landmarks), int(st_g.n_dropped_landmarks)
+    n_edges = int(backend.build_problem(cfg_b, rig_b, wmap_b)[0].graph.e_valid.sum())
+    print(f"BA: K={cfg_b.caps.window} L={cfg_b.caps.active_landmarks} E={cfg_b.caps.ba_edges} lanes "
+          f"{cfg_b.caps.max_features} landmarks {cfg_b.caps.landmarks}; {int(valid.sum())} keyframes, "
+          f"{n_active} active landmarks, {n_dropped} dropped, {n_edges} edges", flush=True)
+    print(f"BA: chi card {chi_g:.6f} cpu {chi_c:.6f} (rtol {BA_CHI_RTOL}); relative poses max |d| {pose_err:.2e} "
+          f"(bar {BA_POSE_ATOL}; absolute {pose_abs:.2e}); masks agree {mask_agree} (bar {BA_MASK_AGREE}); "
+          f"lm_obs equal where they agree: {obs_equal}; outliers card {int(st_g.n_outlier)} cpu {int(st_c.n_outlier)}",
+          flush=True)
+    print(f"BA: {ms_ba:.3f} ms per ba_step (card wall, median of 5); LM iterations {st_g.iterations} "
+          f"attempts {st_g.attempts} (cpu: {st_c.iterations} / {st_c.attempts}); host reads {host_reads} "
+          f"on {kind} ({smi})", flush=True)
+    check(abs(chi_g - chi_c) <= BA_CHI_RTOL * abs(chi_c), "BA chi disagrees between card and CPU")
+    check(pose_err <= BA_POSE_ATOL, "BA poses disagree between card and CPU")
+    check(min(mask_agree) >= BA_MASK_AGREE, "BA outlier verdicts disagree between card and CPU")
+    check(obs_equal, "BA observation counts disagree where the verdicts agree")
+    check(np.isfinite(chi_g) and st_g.iterations >= 1, "BA did not run on the card")
+    check(map_g.lm_pos.is_cuda and st_g.chi.is_cuda, "BA left the card")
+
     # library_ms: no single PyTorch call computes either function.
+    launches = {k: launches_off[k] + launches_inline[k] for k in launches_off}
     kernels = [{"name": r["name"], "route": r["route"], "source": r["source"], "replaces": r["replaces"],
-                "launches": launches[r["name"]], "launches_per_frame": launches[r["name"]] / n_track,
+                "launches": launches[r["name"]], "launches_per_frame": launches[r["name"]] / (2 * n_track),
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "bound_kind": r["bound_by"],
                 "library_ms": None, "work": r["work"]} for r in results]

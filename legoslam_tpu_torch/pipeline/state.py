@@ -43,6 +43,10 @@ class _Tensors:
             self, **{f.name: fn(getattr(self, f.name)) for f in dataclasses.fields(self)}
         )
 
+    def to(self, device):
+        """A copy on `device` (nested state included)."""
+        return self.map(lambda x: x.to(device))
+
 
 @dataclass(frozen=True)
 class Features(_Tensors):

@@ -1,16 +1,20 @@
 """The VisualOdometry API and the per-frame step (twin of
-legoslam_tpu/pipeline/visual_odometry.py, with window BA not yet ported).
+legoslam_tpu/pipeline/visual_odometry.py).
 
 `process_frame` is `Frontend::AddFrame` (frontend_g2o.cpp:27-46): the
-INITING / TRACKING / LOST state machine.  The reference compiles the whole
-frame into one program (`lax.switch`, `lax.cond`) for the TPU; here the
-driver branches in Python on the status and the keyframe decision, reading
-the inlier count of the frame's pose solve from the device once per
-tracking frame.  On CUDA tensors a tracking frame runs the two CUDA kernels
-(anchored KLT, pose) between a few PyTorch ops.
+INITING / TRACKING / LOST state machine, with the backend's window BA
+(`backend.ba_step`) run inline after a successful stereo init and after
+each keyframe insertion, where the reference's `run_ba` sits.  The
+reference compiles the whole frame into one program (`lax.switch`,
+`lax.cond`) for the TPU; here the driver branches in Python on the status
+and the keyframe decision, reading the inlier count of the frame's pose
+solve from the device once per tracking frame, and window BA reads one
+pair of flags per LM attempt.  On CUDA tensors a tracking frame runs the
+two CUDA kernels (anchored KLT, pose) between a few PyTorch ops; window BA
+runs as PyTorch ops on the card.
 
-Only `ba_mode="off"` runs: window BA is not ported yet, and the other
-modes raise instead of quietly running without it.
+`ba_mode` "inline" (the default) runs BA, "off" runs without it; "async"
+(the reference's overlapped backend) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -25,9 +29,11 @@ import torch
 from legoslam_tpu_torch.geometry import se3
 from legoslam_tpu_torch.geometry.camera import StereoRig
 from legoslam_tpu_torch.ops import pyramid as pyr_ops
+from legoslam_tpu_torch.pipeline import backend as backend_mod
 from legoslam_tpu_torch.pipeline import frontend as frontend_mod
 from legoslam_tpu_torch.pipeline.dataset import StereoFrame
 from legoslam_tpu_torch.pipeline.state import Features, VOCarry, WorldMap
+from legoslam_tpu_torch.solver import schur
 from legoslam_tpu_torch.utils.config import Config
 from legoslam_tpu_torch.utils.logging import get_logger
 from legoslam_tpu_torch.utils.timer import Timer
@@ -46,14 +52,17 @@ class FrontendStatus(enum.IntEnum):
 
 @dataclass(frozen=True)
 class FrameOutput:
-    """Per-frame results and the reference's per-frame log counters."""
+    """Per-frame results and the reference's per-frame log counters
+    (frontend_lego.cpp:87,152,230; problem.cpp:180-184)."""
 
     T_cw: torch.Tensor
     status: int
     kf_inserted: bool
     n_inliers: int
+    ba_chi: torch.Tensor                         # BA's final chi, NaN where BA did not run
     n_tracked: Any = 0                           # KLT survivors (tensor)
     n_new_landmarks: Any = 0                     # triangulated this frame (tensor)
+    ba: Optional[backend_mod.BAStats] = None     # NaN/0 where BA did not run (always set)
 
 
 def initial_carry(cfg: frontend_mod.FrontendConfig, shape, dtype, device) -> VOCarry:
@@ -79,25 +88,35 @@ def process_frame(
     img_l: torch.Tensor,
     img_r: torch.Tensor,
     frame_id: int,
+    ba_cfg: backend_mod.BAConfig = backend_mod.BAConfig(),
+    inline_ba: bool = True,
 ) -> Tuple[VOCarry, FrameOutput]:
-    """One SLAM frame with window BA off."""
+    """One SLAM frame, with window BA after a keyframe when `inline_ba`."""
     pyr_l = tuple(pyr_ops.build_pyramid(img_l, cfg.klt.levels))
     eye = torch.eye(4, dtype=img_l.dtype, device=img_l.device)
     zero = torch.zeros((), dtype=torch.int32, device=img_l.device)
+    no_ba = backend_mod.no_stats(ba_cfg, img_l.dtype, img_l.device)
+
+    def run_ba(wmap):
+        if not inline_ba:
+            return wmap, no_ba
+        return backend_mod.ba_step(cfg, rig, wmap, ba_cfg)
 
     if carry.status == FrontendStatus.INITING:
         pyr_r = tuple(pyr_ops.build_pyramid(img_r, cfg.klt.levels))
         success, feats, wmap = frontend_mod.stereo_init(cfg, rig, pyr_l, pyr_r, img_l, carry.wmap, frame_id)
+        n_new = wmap.lm_next - carry.wmap.lm_next
+        wmap, ba = run_ba(wmap) if success else (wmap, no_ba)
         status = int(FrontendStatus.TRACKING_GOOD if success else FrontendStatus.INITING)
-        out = FrameOutput(T_cw=eye, status=status, kf_inserted=success, n_inliers=0,
-                          n_tracked=zero, n_new_landmarks=wmap.lm_next - carry.wmap.lm_next)
+        out = FrameOutput(T_cw=eye, status=status, kf_inserted=success, n_inliers=0, ba_chi=ba.chi,
+                          n_tracked=zero, n_new_landmarks=n_new, ba=ba)
         return VOCarry(status, feats, wmap, eye, eye.clone(), pyr_l, 0), out
 
     if carry.status == FrontendStatus.LOST:
         # Reset (frontend_g2o.cpp:351-366): wipe the map, re-init next frame.
         fresh = initial_carry(cfg, tuple(img_l.shape), img_l.dtype, img_l.device)
         out = FrameOutput(T_cw=carry.T_cur, status=fresh.status, kf_inserted=False, n_inliers=0,
-                          n_tracked=zero, n_new_landmarks=zero)
+                          ba_chi=no_ba.chi, n_tracked=zero, n_new_landmarks=zero, ba=no_ba)
         return fresh.replace(pyr_last=pyr_l), out
 
     # Track (frontend_g2o.cpp:48-75).  The composition is re-projected onto
@@ -121,13 +140,14 @@ def process_frame(
     insert = (
         n_in < cfg.num_features_needed_for_keyframe or carry.frames_since_kf + 1 >= cfg.max_keyframe_gap
     ) and n_in >= cfg.num_features_tracking_bad
-    wmap = carry.wmap
+    wmap, ba = carry.wmap, no_ba
     if insert:
         pyr_r = tuple(pyr_ops.build_pyramid(img_r, cfg.klt.levels))
         feats, wmap = frontend_mod.insert_keyframe(cfg, rig, pyr_l, pyr_r, img_l, feats, wmap, T_new, frame_id)
+        wmap, ba = run_ba(wmap)
     rel = se3.se3_orthonormalize(T_new @ se3.se3_inv(carry.T_cur))
-    out = FrameOutput(T_cw=T_new, status=int(status), kf_inserted=insert, n_inliers=n_in,
-                      n_tracked=n_tracked, n_new_landmarks=wmap.lm_next - carry.wmap.lm_next)
+    out = FrameOutput(T_cw=T_new, status=int(status), kf_inserted=insert, n_inliers=n_in, ba_chi=ba.chi,
+                      n_tracked=n_tracked, n_new_landmarks=wmap.lm_next - carry.wmap.lm_next, ba=ba)
     since_kf = 0 if insert else carry.frames_since_kf + 1
     return VOCarry(int(status), feats, wmap, T_new, rel, pyr_l, since_kf), out
 
@@ -150,9 +170,9 @@ class VisualOdometry:
         self.config = config or (Config.from_yaml(config_path) if config_path else Config())
         self.dataset = dataset
         ba_mode = ba_mode or self.config["ba_mode"]
-        if ba_mode in ("inline", "async"):
-            raise NotImplementedError("window BA lands in the next port PR")
-        if ba_mode != "off":
+        if ba_mode == "async":
+            raise NotImplementedError("async window BA is not ported yet; use ba_mode 'inline' or 'off'")
+        if ba_mode not in ("inline", "off"):
             raise ValueError(f"unknown ba_mode {ba_mode!r}")
         for key in ("use_loop_closure", "use_marg_prior"):
             if self.config[key]:
@@ -163,6 +183,7 @@ class VisualOdometry:
         self.device = torch.device(device)
         self.frontend_cfg: Optional[frontend_mod.FrontendConfig] = None
         self.rig: Optional[StereoRig] = None
+        self.ba_cfg: Optional[backend_mod.BAConfig] = None
         self.carry: Optional[VOCarry] = None
         self.outputs: List[FrameOutput] = []
         self.frame_ids: List[int] = []
@@ -179,6 +200,17 @@ class VisualOdometry:
             return False
         self.rig = self.dataset.rig.to(self.device)
         self.frontend_cfg = frontend_mod.FrontendConfig.from_config(self.config)
+        self.ba_cfg = backend_mod.BAConfig(
+            iterations=self.config["ba_solver_iterations"],
+            chi2_threshold=self.config["chi2_threshold"],
+            max_chi2_doublings=self.config["ba_max_chi2_doublings"],
+            inlier_ratio=self.config["ba_inlier_ratio"],
+            strategy=self.config["lm_strategy"],
+            linear_solver=self.config["linear_solver"],
+            engine=self.config["lm_engine"],
+            trace=bool(self.config["ba_trace"]),
+        )
+        schur.check_engine(self.ba_cfg.engine)
         self.log_every = int(self.config["log_every_n_frames"])
         self.carry = None
         self.outputs = []
@@ -198,14 +230,34 @@ class VisualOdometry:
         img_r = torch.as_tensor(np.asarray(frame.right, np.float32)).to(self.device)
         if self.carry is None:
             self.carry = initial_carry(self.frontend_cfg, frame.left.shape, torch.float32, self.device)
-        self.carry, out = process_frame(self.frontend_cfg, self.rig, self.carry, img_l, img_r, int(frame.frame_id))
+        self.carry, out = process_frame(self.frontend_cfg, self.rig, self.carry, img_l, img_r,
+                                        int(frame.frame_id), self.ba_cfg, self.ba_mode == "inline")
         self.outputs.append(out)
         self.frame_ids.append(frame.frame_id)
         if self.log_every > 0 and len(self.outputs) % self.log_every == 0:
-            log.info("frame %d: %s tracked=%d inliers=%d%s", frame.frame_id,
-                     FrontendStatus(out.status).name, int(out.n_tracked), out.n_inliers,
-                     f" KF new_landmarks={int(out.n_new_landmarks)}" if out.kf_inserted else "")
+            self._log_frame(frame.frame_id, out)
         return out
+
+    def _log_frame(self, frame_id: int, out: FrameOutput) -> None:
+        """The reference's per-frame INFO log (frontend_lego.cpp:87,152,230 and
+        problem.cpp:180-184).  Reads from the device: gate with log_every."""
+        msg = (f"frame {frame_id}: {FrontendStatus(out.status).name} tracked={int(out.n_tracked)} "
+               f"inliers={out.n_inliers}")
+        if out.kf_inserted:
+            msg += f" KF new_landmarks={int(out.n_new_landmarks)}"
+            ba = out.ba
+            if np.isfinite(float(ba.chi)):
+                msg += (f" | BA chi={float(ba.chi):.2f} iters={ba.iterations} lambda={float(ba.lam):.3g}"
+                        f" inl/out={int(ba.n_inlier)}/{int(ba.n_outlier)}"
+                        f" active_lms={int(ba.n_active_landmarks)}")
+                if int(ba.n_dropped_landmarks) > 0:
+                    log.warning("frame %d: BA capacity overflow — %d landmarks/edges dropped from the "
+                                "problem (raise max_active_landmarks / max_ba_edges)",
+                                frame_id, int(ba.n_dropped_landmarks))
+                for it, (chi, lam) in enumerate(ba.trace.tolist()):
+                    if np.isfinite(chi):
+                        log.info("  BA iter %d: chi=%.3f lambda=%.4g", it, chi, lam)
+        log.info(msg)
 
     def run(self) -> None:
         """Main loop (visual_odometry.cpp:46-57)."""
@@ -217,6 +269,13 @@ class VisualOdometry:
         if n:
             log.info("VO: %d frames in %.1f ms (%.2f ms/frame, %.1f FPS)",
                      n, total_ms, total_ms / n, 1e3 * n / total_ms)
+            # Capacity audit: a BA solve that quietly truncated its problem is
+            # reported even when per-frame logging is off.
+            dropped = int(torch.stack([o.ba.n_dropped_landmarks for o in self.outputs]).sum())
+            if dropped > 0:
+                log.warning("VO: BA dropped %d landmark/edge slots across the run due to capacity "
+                            "limits — results may be degraded; raise max_active_landmarks / "
+                            "max_ba_edges", dropped)
 
     # --- results ---
     def trajectory_T_cw(self) -> np.ndarray:

@@ -1,6 +1,6 @@
-"""Levenberg-Marquardt driver and the motion-only pose solve (twin of
-legoslam_tpu/solver/lm.py: `LMConfig`, `lm_optimize`, `solve_pose`,
-`pose_edge_chi2`, `estimate_pose`; window BA is not ported yet).
+"""Levenberg-Marquardt driver, window BA and the motion-only pose solve
+(twin of legoslam_tpu/solver/lm.py: `LMConfig`, `lm_optimize`, `BAState`,
+`solve_ba`, `solve_pose`, `pose_edge_chi2`, `estimate_pose`).
 
 `lego::Problem::solve` (problem.cpp:156-230): lambda from the Hessian
 diagonal, the Nielsen or "strategy1" schedule, the inner try-lambda loop
@@ -8,9 +8,13 @@ with rollback (false-count threshold 10) and the chi-difference stop.  The
 reference expresses the loop as a `lax.while_loop`; here it is a Python loop
 over tensors, one lambda attempt per pass, with the same accept rule:
 rho > 0, predicted decrease > 0 and a finite candidate chi (lm.py:142).
+Each attempt reads two flags from the device in one transfer: whether it
+was accepted, and whether it meets the stop rule if it ends an iteration.
 
-This is the plain PyTorch pose path.  On CUDA tensors the pipeline runs the
-whole `estimate_pose` as one kernel (csrc/pose.cu via kernels/pose.py).
+The pose path here is the plain PyTorch version; on CUDA tensors the
+pipeline runs the whole `estimate_pose` as one kernel (csrc/pose.cu via
+kernels/pose.py).  Window BA runs as PyTorch ops on whatever device its
+tensors are on (solver/schur.py).
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 import torch
 
 from legoslam_tpu_torch.geometry import se3
-from legoslam_tpu_torch.solver import reprojection, robust
+from legoslam_tpu_torch.solver import reprojection, robust, schur
 
 
 class LMConfig(NamedTuple):
@@ -31,19 +35,28 @@ class LMConfig(NamedTuple):
     false_cnt_threshold: int = 10    # problem.cpp:178
     init_lambda: float = -1.0        # <0: compute from Hessian diagonal
     max_diag_cap: float = 5e10       # problem.cpp:494
+    linear_solver: str = "cholesky"  # "cholesky" | "pcg" (problem.cpp:377-422)
+    trace: bool = False              # record per-iteration (chi, lambda), the
+                                     # reference's solve printout (problem.cpp:180-184)
 
 
 class LMFunctions(NamedTuple):
     """Problem callbacks: build(state) -> aux, chi(state) -> scalar
     0.5*robust-chi2, solve(aux, lam) -> dx, retract(state, dx) -> state,
-    dot_scale(aux, dx, lam) -> denominator of rho, max_diag(aux) -> max |H_ii|."""
+    dot_scale(aux, dx, lam) -> denominator of rho, max_diag(aux) -> max |H_ii|.
 
-    build: Callable[[Any], Any]
-    chi: Callable[[Any], torch.Tensor]
+    chi_build(state) -> (chi, aux), where given, evaluates a candidate's chi
+    and its assembly in one sweep and keeps the assembly if the step is
+    accepted (the reference's fused path, lm.py:64-71); build and chi are
+    then not called."""
+
+    build: Optional[Callable[[Any], Any]]
+    chi: Optional[Callable[[Any], torch.Tensor]]
     solve: Callable[[Any, torch.Tensor], Any]
     retract: Callable[[Any, Any], Any]
     dot_scale: Callable[[Any, Any, torch.Tensor], torch.Tensor]
     max_diag: Callable[[Any], torch.Tensor]
+    chi_build: Optional[Callable[[Any], Tuple[torch.Tensor, Any]]] = None
 
 
 class LMResult(NamedTuple):
@@ -51,17 +64,22 @@ class LMResult(NamedTuple):
     chi: torch.Tensor
     lam: torch.Tensor
     iterations: int
-    attempts: int
+    attempts: int          # lambda attempts, one device read each
+    trace: torch.Tensor    # (iterations, 2) [chi, lambda] per outer iteration if cfg.trace, else (0, 2)
 
 
-def lm_optimize(fns: LMFunctions, state0: torch.Tensor, cfg: LMConfig) -> LMResult:
-    dtype, device = state0.dtype, state0.device
+def lm_optimize(fns: LMFunctions, state0: Any, cfg: LMConfig) -> LMResult:
+    leaf = state0 if torch.is_tensor(state0) else state0[0]
+    dtype, device = leaf.dtype, leaf.device
 
-    def scalar(x):
-        return torch.tensor(x, dtype=dtype, device=device)
+    def scalar(x):  # a fill, not a copy from the host, which would wait for the device
+        return torch.full((), x, dtype=dtype, device=device)
 
-    aux = fns.build(state0)
-    chi = fns.chi(state0)
+    if fns.chi_build is not None:
+        chi, aux = fns.chi_build(state0)
+    else:
+        aux = fns.build(state0)
+        chi = fns.chi(state0)
     if cfg.strategy == "strategy1":
         lam = scalar(1e-5)  # problem.cpp:500-503
     elif cfg.init_lambda >= 0:
@@ -71,18 +89,27 @@ def lm_optimize(fns: LMFunctions, state0: torch.Tensor, cfg: LMConfig) -> LMResu
     state = state0
     last_chi = scalar(1e20)
     ni = scalar(2.0)
+    trace = torch.full((cfg.iterations if cfg.trace else 0, 2), torch.nan, dtype=dtype, device=device)
     it = false_cnt = attempts = 0
     stop = False
 
     while not stop and it < cfg.iterations:
         dx = fns.solve(aux, lam)
         cand = fns.retract(state, dx)
-        temp_chi = fns.chi(cand)
+        if fns.chi_build is not None:
+            temp_chi, aux_cand = fns.chi_build(cand)
+        else:
+            temp_chi = fns.chi(cand)
         scale = fns.dot_scale(aux, dx, lam) + 1e-10
         rho_val = (chi - temp_chi) / scale
         # scale > 0 rejects the junk steps an f32 solve of an ill-conditioned
         # system can produce at small lambda (the reference's lm.py:132-142).
-        accept = bool((rho_val > 0) & (scale > 0) & torch.isfinite(temp_chi))
+        accept_t = (rho_val > 0) & (scale > 0) & torch.isfinite(temp_chi)
+        # The stop rule on the chi this attempt leaves (problem.cpp:210-218),
+        # read with the accept flag: one device read per attempt.
+        stop_t = last_chi - torch.where(accept_t, temp_chi, chi) < cfg.diff_chi_threshold
+        accept, stop_if_done = torch.stack([accept_t, stop_t]).tolist()
+        lam_used = lam
         if cfg.strategy == "strategy1":
             lam = torch.clamp(lam / 9.0, min=1e-7) if accept else torch.clamp(lam * 11.0, max=1e7)
         elif accept:
@@ -94,19 +121,91 @@ def lm_optimize(fns: LMFunctions, state0: torch.Tensor, cfg: LMConfig) -> LMResu
             ni = ni * 2.0
         if accept:
             # Accepted steps re-linearize; rejected ones keep the blocks.
-            state, aux, chi = cand, fns.build(cand), temp_chi
+            state, chi = cand, temp_chi
+            aux = aux_cand if fns.chi_build is not None else fns.build(cand)
         false_n = 0 if accept else false_cnt + 1
         outer_done = accept or false_n >= cfg.false_cnt_threshold
         attempts += 1
         if outer_done:
+            if cfg.trace:
+                trace[it] = torch.stack([chi, lam_used])
             it += 1
-            stop = bool(last_chi - chi < cfg.diff_chi_threshold)
+            stop = stop_if_done
             last_chi = chi
             false_cnt = 0
         else:
             false_cnt = false_n
-    return LMResult(state=state, chi=chi, lam=lam, iterations=it, attempts=attempts)
+    return LMResult(state=state, chi=chi, lam=lam, iterations=it, attempts=attempts, trace=trace)
 
+
+# ---------------------------------------------------------------------------
+# Full bundle adjustment (pose + landmark), the reference's backend problem
+# ---------------------------------------------------------------------------
+
+class BAState(NamedTuple):
+    poses: torch.Tensor   # (K, 4, 4)
+    points: torch.Tensor  # (L, 3)
+
+
+def solve_ba(
+    graph: schur.BAGraph,
+    poses: torch.Tensor,
+    points: torch.Tensor,
+    *,
+    kernel: str = robust.HUBER,
+    delta: float = 5.991,
+    cfg: LMConfig = LMConfig(),
+    engine: str = "soa",
+    pose_prior=None,
+) -> Tuple[BAState, LMResult]:
+    """Sliding-window BA, `Backend::Optimize`'s `problem.solve(10)`
+    (backend_lego.cpp:161) over the active window, on the one engine of
+    solver/schur.py ("soa" and "blocks" both select it).  Each attempt is
+    one fused edge sweep: the candidate's chi and its assembly together.
+    The marginalization prior (`pose_prior`) is not ported yet and raises."""
+    schur.check_engine(engine)
+    if pose_prior is not None:
+        raise NotImplementedError("the marginalization prior (pose_prior) is not ported yet")
+
+    def chi_build(st: BAState):
+        blocks, chi = schur.build_blocks(graph, st.poses, st.points, kernel, delta, with_chi=True)
+        return chi, (blocks, schur.blocks_diag(blocks))
+
+    def solve_fn(aux, lam):
+        blocks, _ = aux
+        S, bs, Hll_inv = schur.schur_reduce(blocks, graph.point_valid, lam, cfg.strategy)
+        dx_p = schur.damp_and_solve(S, bs, lam, cfg.strategy, method=cfg.linear_solver)
+        return dx_p.reshape(-1, 6), schur.back_substitute(blocks, Hll_inv, dx_p)
+
+    def retract_fn(st: BAState, dx):
+        dx_p, dx_l = dx
+        # VertexXYZ::add's NaN/Inf guard (lego_types.h:105-112)
+        finite = torch.isfinite(dx_l).all(-1, keepdim=True)
+        points_n = st.points + torch.where(finite & graph.point_valid[:, None], dx_l, 0.0)
+        return BAState(poses=se3.retract(st.poses, dx_p), points=points_n)
+
+    def dot_scale(aux, dx, lam):
+        # 0.5 dx^T (lam * dx + b) over [pose; landmark] (problem.cpp:535);
+        # strategy1 uses lam * diag(H) * dx (:564).
+        blocks, diag = aux
+        flat = torch.cat([dx[0].reshape(-1), dx[1].reshape(-1)])
+        b = torch.cat([blocks.bp.reshape(-1), blocks.bl.reshape(-1)])
+        if cfg.strategy == "strategy1":
+            return 0.5 * torch.dot(flat, lam * diag * flat + b)
+        return 0.5 * torch.dot(flat, lam * flat + b)
+
+    def max_diag(aux):
+        return aux[1].abs().max()
+
+    fns = LMFunctions(build=None, chi=None, solve=solve_fn, retract=retract_fn,
+                      dot_scale=dot_scale, max_diag=max_diag, chi_build=chi_build)
+    res = lm_optimize(fns, BAState(poses=poses, points=points), cfg)
+    return res.state, res
+
+
+# ---------------------------------------------------------------------------
+# Motion-only pose solve (single pose, landmarks fixed), the frontend problem
+# ---------------------------------------------------------------------------
 
 def solve_pose(
     intr: reprojection.Intrinsics,

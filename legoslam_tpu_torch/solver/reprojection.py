@@ -1,6 +1,6 @@
 """Closed-form reprojection residuals and analytic Jacobians, batched per edge
 (twin of legoslam_tpu/solver/reprojection.py; `EdgeProjectionPoseOnly`,
-lego_types.h:117-185).
+lego_types.h:117-185, and `EdgeProjection`, lego_types.h:188-261).
 
 Conventions: residual = measurement - projection; the pose tangent is
 [rho, phi] with the left-multiplicative update Exp(d) T."""
@@ -52,3 +52,16 @@ def pose_only_edge(intr: Intrinsics, T_cw: torch.Tensor, p_world: torch.Tensor, 
     """Batched `EdgeProjectionPoseOnly`: (residual (..., 2), J_pose (..., 2, 6))."""
     p_cam = se3.transform(T_cw, p_world)
     return uv - project(intr, p_cam), _pose_jacobian(intr, p_cam)
+
+
+def projection_edge(intr: Intrinsics, T_cw: torch.Tensor, ext: torch.Tensor, p_world: torch.Tensor,
+                    uv: torch.Tensor):
+    """Batched `EdgeProjection` (pose + point, with the per-edge camera
+    extrinsic `ext`, camera-from-rig): (residual (..., 2), J_pose (..., 2, 6),
+    J_point (..., 2, 3)).  The pose Jacobian is taken at the post-extrinsic
+    point, as the reference does (lego_types.h:232-248)."""
+    p_cam = se3.transform(ext, se3.transform(T_cw, p_world))
+    J_pose = _pose_jacobian(intr, p_cam)
+    # J_point = J_pose[:, :3] @ R_ext @ R_T  (lego_types.h:251-253)
+    R = ext[..., :3, :3] @ T_cw[..., :3, :3]
+    return uv - project(intr, p_cam), J_pose, J_pose[..., :, :3] @ R

@@ -12,7 +12,12 @@ false_cnt_threshold + 3 per round: near convergence the chi change of a
 step is at the float rounding level, so one run may accept it and stop
 where the other rejects it and runs a rejection chain of up to
 false_cnt_threshold attempts, and the iteration or two around it.
+
+Window BA has no kernel of its own (PyTorch ops); its card run is held
+against the same call on a CPU copy of the map with chip_smoke.py's bars.
 """
+
+import warnings
 
 import numpy as np
 import pytest
@@ -167,3 +172,71 @@ def test_pose_dispatch_picks_kernel_on_cuda(cuda):
     n0 = pose_k.estimate_pose_kernel.launches
     pose_k.estimate_pose(intr, T, P, uv, valid)
     assert pose_k.estimate_pose_kernel.launches == n0 + 1
+
+
+@pytest.mark.parametrize("linear_solver", ["cholesky", "pcg"])
+def test_ba_step_card_matches_cpu(cuda, monkeypatch, linear_solver):
+    """`backend.ba_step` at the default capacities (K=16, L=2048, E=5120, 512
+    lanes) on the card against the same call on a CPU copy of the map.  The
+    map is the one the default path hands to its third BA (the corridor,
+    a keyframe every second frame): the window optimized before, the new
+    keyframe and its landmarks not.  Bars of chip_smoke.py: chi 1e-3
+    relative, poses relative to the oldest keyframe 1e-3, outlier verdicts
+    >= 99% and observation counts equal where they agree.  With Cholesky
+    the card reads from the host once per LM attempt, no more."""
+    from legoslam_tpu_torch.pipeline import backend
+    from legoslam_tpu_torch.pipeline.dataset import SyntheticPlanesDataset
+    from legoslam_tpu_torch.pipeline.state import Capacities
+    from legoslam_tpu_torch.pipeline.visual_odometry import VisualOdometry
+    from legoslam_tpu_torch.utils.config import Config
+
+    calls = []
+    ba_step = backend.ba_step
+
+    def keep_args(*args):
+        calls.append(args)
+        return ba_step(*args)
+
+    monkeypatch.setattr(backend, "ba_step", keep_args)
+    ds = SyntheticPlanesDataset(n_frames=5, shape=(160, 240), focal=260.0, baseline=0.54, speed=0.25)
+    config = Config({"stereo_depth_inferior_limit": 2.0, "stereo_depth_superior_limit": 50.0,
+                     "detect_mask_half": 6, "gftt_min_distance": 6, "max_keyframe_gap": 2,
+                     "linear_solver": linear_solver})
+    vo = VisualOdometry(config=config, dataset=ds)
+    assert vo.device.type == "cuda" and vo.ba_mode == "inline" and vo.init()
+    while vo.step():
+        pass
+    assert len(calls) == 3
+    cfg, rig, wmap, ba_cfg = calls[-1]
+    assert cfg.caps == Capacities() and int(wmap.num_keyframes()) == 3
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            map_g, st_g = ba_step(cfg, rig, wmap, ba_cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    reads = sum("synchroniz" in str(w.message) for w in caught)
+    map_c, st_c = ba_step(cfg, rig.to("cpu"), wmap.to("cpu"), ba_cfg)
+    assert map_g.lm_pos.is_cuda and st_g.chi.is_cuda
+    assert st_g.iterations >= 1 and np.isfinite(float(st_g.chi))
+    if linear_solver == "cholesky":
+        assert reads == st_g.attempts, (reads, st_g.attempts)
+    np.testing.assert_allclose(float(st_g.chi), float(st_c.chi), rtol=1e-3)
+    valid = wmap.kf_valid.cpu().numpy()
+    oldest = int(np.argmax(valid))
+
+    def relative(T):
+        T = T.double().cpu().numpy()
+        return (T @ np.linalg.inv(T[oldest]))[valid]
+
+    np.testing.assert_allclose(relative(map_g.kf_pose), relative(map_c.kf_pose), rtol=0, atol=1e-3)
+    agree = np.ones(tuple(wmap.kf_lm.shape), bool)
+    for name in ("kf_obs_left", "kf_obs_right"):
+        a, b = getattr(map_g, name).cpu().numpy(), getattr(map_c, name).numpy()
+        assert (a == b).mean() >= 0.99
+        agree &= a == b
+    kf_lm = wmap.kf_lm.cpu().numpy()
+    ids = kf_lm[agree & (kf_lm >= 0)]
+    np.testing.assert_array_equal(map_g.lm_obs.cpu().numpy()[ids], map_c.lm_obs.numpy()[ids])
