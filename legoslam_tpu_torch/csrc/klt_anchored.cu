@@ -40,6 +40,17 @@
 // texture unit's 8-bit filter weights would be too coarse).  The GN
 // iterations summed over lanes and levels go to an optional counter (the
 // work count behind the bound).
+//
+// Frame mode (klt_pyramid_frame_kernel) is the other path into the same two
+// Pallas kernels: legoslam_tpu/ops/klt.py klt_pyramid (:179-226), which
+// samples the template from the first image at every level and hands it to
+// the level kernels (_pallas_level_kernel, :202-215).  Here the warp samples
+// the 9x9 template itself from a second pyramid at kp1's position on that
+// level (no extract_anchors pass before the launch), a failed lane restarts
+// the next level from kp1 instead of the initial guess, and there is no ZNCC
+// gate.  Everything else (the GN loop, `valid` on every level, the in-image
+// test) is the shared body below; the plain PyTorch twin is
+// legoslam_tpu_torch/kernels/klt.py klt_pyramid_eager.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -98,9 +109,32 @@ __device__ __forceinline__ void warp_allreduce(float (&v)[N]) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads) klt_pyramid_anchored_kernel(
-    const float* __restrict__ anchors, int anchor_levels, Pyramid pyr, int levels,
-    const float* __restrict__ anchor_uv, const float* __restrict__ guess,
+// Select one level of a pyramid with constant indices: indexing the parameter
+// struct by `level` would copy it to the stack.
+__device__ __forceinline__ void select_level(const Pyramid& pyr, int level, const float*& img,
+                                             int& H, int& W) {
+  img = pyr.level[0];
+  H = pyr.height[0];
+  W = pyr.width[0];
+#pragma unroll
+  for (int l = 1; l < kMaxLevels; ++l) {
+    if (l == level) {
+      img = pyr.level[l];
+      H = pyr.height[l];
+      W = pyr.width[l];
+    }
+  }
+}
+
+// The whole pyramid for one keypoint per warp.  kFrame = false: templates
+// come from `anchors`, failed lanes restart from the guess, ZNCC gate at the
+// end.  kFrame = true: templates are sampled from `pyr1` at kp1, failed
+// lanes restart from kp1, no gate (`anchors`, `anchor_levels` and `min_zncc`
+// are unused).
+template <bool kFrame>
+__device__ __forceinline__ void klt_pyramid_body(
+    const float* __restrict__ anchors, int anchor_levels, const Pyramid& pyr1, const Pyramid& pyr,
+    int levels, const float* __restrict__ anchor_uv, const float* __restrict__ guess,
     const uint8_t* __restrict__ valid, int n, int iterations, float eps2, float scale,
     float scale_top, int inverse, float min_zncc, float* __restrict__ kp_out,
     uint8_t* __restrict__ ok_out, int* __restrict__ gn_iterations) {
@@ -123,21 +157,29 @@ __global__ void __launch_bounds__(kThreads) klt_pyramid_anchored_kernel(
   const float half = (float)kHalo * 0.5f - 0.5f;  // (halo - 1) / 2
 
   for (int level = levels - 1; level >= 0; --level) {
-    // Select the level with constant indices: indexing the parameter struct
-    // by `level` would copy it to the stack.
-    const float* img = pyr.level[0];
-    int H = pyr.height[0], W = pyr.width[0];
-#pragma unroll
-    for (int l = 1; l < kMaxLevels; ++l) {
-      if (l == level) {
-        img = pyr.level[l];
-        H = pyr.height[l];
-        W = pyr.width[l];
-      }
-    }
-    const float* a = anchors + ((long long)i * anchor_levels + level) * kWindow;
+    const float* img;
+    int H, W;
+    select_level(pyr, level, img, H, W);
     __syncwarp();  // the previous level's reads of tpl are done
-    for (int q = lane; q < kWindow; q += 32) tpl[q] = a[q];
+    if constexpr (kFrame) {
+      // The template is the first image's halo window at kp1 on this level
+      // (ops/klt.py:209-210: interp.sample_patches(img1, kp1l, halo)).
+      const float* img1;
+      int H1, W1;
+      select_level(pyr1, level, img1, H1, W1);
+      const float tx0 = k1x - half, ty0 = k1y - half;
+#pragma unroll
+      for (int j = 0; j < (kWindow + 31) / 32; ++j) {
+        const int q = lane + 32 * j;
+        if (q < kWindow) {
+          const int r = q / kHalo, c = q - r * kHalo;
+          tpl[q] = sample(img1, H1, W1, ty0 + (float)r, tx0 + (float)c);
+        }
+      }
+    } else {
+      const float* a = anchors + ((long long)i * anchor_levels + level) * kWindow;
+      for (int q = lane; q < kWindow; q += 32) tpl[q] = a[q];
+    }
     __syncwarp();
 
     // Inverse compositional: J and H frozen from the template's gradients.
@@ -224,20 +266,21 @@ __global__ void __launch_bounds__(kThreads) klt_pyramid_anchored_kernel(
     const bool in_img = kx >= 0.0f && kx < (float)W && ky >= 0.0f && ky < (float)H;
     succ = s && in_img && v;
     if (level > 0) {
-      // Failed lanes restart from the initial guess (ops/klt.py:366-370).
+      // Failed lanes restart from the initial guess (ops/klt.py:366-370);
+      // in frame mode from kp1 (ops/klt.py:222-225).
       k1x = k1x / scale;
       k1y = k1y / scale;
       gx0 = gx0 / scale;
       gy0 = gy0 / scale;
-      k2x = succ ? kx / scale : gx0;
-      k2y = succ ? ky / scale : gy0;
+      k2x = succ ? kx / scale : (kFrame ? k1x : gx0);
+      k2y = succ ? ky / scale : (kFrame ? k1y : gy0);
     } else {
       k2x = kx;
       k2y = ky;
     }
   }
 
-  if (min_zncc > 0.0f) {
+  if (!kFrame && min_zncc > 0.0f) {
     // ZNCC of the level-0 template core against the patch at the result
     // (ops/klt.py:371-379); tpl still holds level 0.  Each lane keeps its
     // (at most 2) terms in registers between the two passes.
@@ -281,6 +324,38 @@ __global__ void __launch_bounds__(kThreads) klt_pyramid_anchored_kernel(
   }
 }
 
+__global__ void __launch_bounds__(kThreads) klt_pyramid_anchored_kernel(
+    const float* __restrict__ anchors, int anchor_levels, const __grid_constant__ Pyramid pyr,
+    int levels, const float* __restrict__ anchor_uv, const float* __restrict__ guess,
+    const uint8_t* __restrict__ valid, int n, int iterations, float eps2, float scale,
+    float scale_top, int inverse, float min_zncc, float* __restrict__ kp_out,
+    uint8_t* __restrict__ ok_out, int* __restrict__ gn_iterations) {
+  klt_pyramid_body<false>(anchors, anchor_levels, pyr, pyr, levels, anchor_uv, guess, valid, n,
+                          iterations, eps2, scale, scale_top, inverse, min_zncc, kp_out, ok_out,
+                          gn_iterations);
+}
+
+__global__ void __launch_bounds__(kThreads) klt_pyramid_frame_kernel(
+    const __grid_constant__ Pyramid pyr1, const __grid_constant__ Pyramid pyr2, int levels,
+    const float* __restrict__ kp1,
+    const float* __restrict__ guess, const uint8_t* __restrict__ valid, int n, int iterations,
+    float eps2, float scale, float scale_top, int inverse, float* __restrict__ kp_out,
+    uint8_t* __restrict__ ok_out, int* __restrict__ gn_iterations) {
+  klt_pyramid_body<true>(nullptr, 0, pyr1, pyr2, levels, kp1, guess, valid, n, iterations, eps2,
+                         scale, scale_top, inverse, 0.0f, kp_out, ok_out, gn_iterations);
+}
+
+Pyramid make_pyramid(const float* const* level_ptr, const int* level_height,
+                     const int* level_width, int levels) {
+  Pyramid pyr{};
+  for (int l = 0; l < levels; ++l) {
+    pyr.level[l] = level_ptr[l];
+    pyr.height[l] = level_height[l];
+    pyr.width[l] = level_width[l];
+  }
+  return pyr;
+}
+
 }  // namespace
 
 extern "C" int legoslam_klt_pyramid_anchored(
@@ -294,16 +369,33 @@ extern "C" int legoslam_klt_pyramid_anchored(
     return (int)cudaErrorInvalidValue;
   }
   if (n == 0) return 0;
-  Pyramid pyr{};
-  for (int l = 0; l < levels; ++l) {
-    pyr.level[l] = level_ptr[l];
-    pyr.height[l] = level_height[l];
-    pyr.width[l] = level_width[l];
-  }
+  const Pyramid pyr = make_pyramid(level_ptr, level_height, level_width, levels);
   const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
   klt_pyramid_anchored_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       anchors, anchor_levels, pyr, levels, anchor_uv, guess, valid, n, iterations, eps2, scale,
       scale_top, inverse, min_zncc, kp_out, ok_out, gn_iterations);
+  return (int)cudaGetLastError();
+}
+
+// Frame mode: both pyramids as per-level pointers (finest first), `levels`
+// of each; kp1 are the keypoints in the first image, guess their initial
+// positions in the second.
+extern "C" int legoslam_klt_pyramid_frame(
+    const float* const* level1_ptr, const int* level1_height, const int* level1_width,
+    const float* const* level2_ptr, const int* level2_height, const int* level2_width, int levels,
+    const float* kp1, const float* guess, const uint8_t* valid, int n, int half_patch,
+    int iterations, float eps2, float scale, float scale_top, int inverse, float* kp_out,
+    uint8_t* ok_out, int* gn_iterations, void* stream) {
+  if (half_patch != kHalfPatch || levels < 1 || levels > kMaxLevels || n < 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (n == 0) return 0;
+  const Pyramid pyr1 = make_pyramid(level1_ptr, level1_height, level1_width, levels);
+  const Pyramid pyr2 = make_pyramid(level2_ptr, level2_height, level2_width, levels);
+  const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  klt_pyramid_frame_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      pyr1, pyr2, levels, kp1, guess, valid, n, iterations, eps2, scale, scale_top, inverse,
+      kp_out, ok_out, gn_iterations);
   return (int)cudaGetLastError();
 }
 

@@ -1,13 +1,13 @@
-"""Anchored pyramid KLT: the CUDA kernel (csrc/klt_anchored.cu) and its plain
-PyTorch version.
+"""Pyramid KLT: the CUDA kernels (csrc/klt_anchored.cu) and their plain
+PyTorch versions, anchored and frame mode.
 
-`klt_pyramid_anchored_kernel` launches the kernel (CUDA tensors only);
-`klt_pyramid_anchored_eager` is the same function written with the ported
-ops/klt.py code (any device); `klt_pyramid_anchored` picks one by
-`KLTConfig.backend` and the device: "auto" launches the kernel for CUDA
-tensors and runs the plain version for CPU tensors, "kernel" and "eager"
-force one.  Nothing falls back: a CUDA tensor under "auto" gets the kernel
-or an exception.
+`klt_pyramid_anchored_kernel` / `klt_pyramid_kernel` launch a kernel (CUDA
+tensors only); `klt_pyramid_anchored_eager` / `klt_pyramid_eager` are the
+same functions written with the ported ops/klt.py code (any device);
+`klt_pyramid_anchored` / `klt_pyramid` pick one by `KLTConfig.backend` and
+the device: "auto" launches the kernel for CUDA tensors and runs the plain
+version for CPU tensors, "kernel" and "eager" force one.  Nothing falls
+back: a CUDA tensor under "auto" gets the kernel or an exception.
 """
 
 from __future__ import annotations
@@ -64,15 +64,36 @@ def _lib():
     lib = _build.load("klt_anchored")
     fn = lib.legoslam_klt_pyramid_anchored
     if fn.argtypes is None:
-        fn.restype = ctypes.c_int
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.restype = ctypes.c_int
         fn.argtypes = [p, i, p, p, p, i, p, p, p, i, i, i, f, f, f, i, f, p, p, p, p]
+        fn = lib.legoslam_klt_pyramid_frame
+        fn.restype = ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, i, p, p, p, i, i, i, f, f, f, i, p, p, p, p]
     return lib
 
 
 def _require(cond: bool, msg: str) -> None:
     if not cond:
-        raise ValueError(f"klt_pyramid_anchored_kernel: {msg}")
+        raise ValueError(f"klt kernel: {msg}")
+
+
+def _level_arrays(pyr: Sequence[torch.Tensor], levels: int, dev, what: str):
+    """The levels as the C arrays the entry points take (pointer, height,
+    width per level); each level must be a contiguous 2-D float32 tensor."""
+    for k, lvl in enumerate(pyr[:levels]):
+        _require(lvl.dim() == 2 and lvl.dtype == torch.float32 and lvl.device == dev
+                 and lvl.is_contiguous(), f"{what} level {k} must be a contiguous 2-D float32 tensor on {dev}")
+    return ((ctypes.c_void_p * levels)(*[lvl.data_ptr() for lvl in pyr[:levels]]),
+            (ctypes.c_int * levels)(*[lvl.shape[0] for lvl in pyr[:levels]]),
+            (ctypes.c_int * levels)(*[lvl.shape[1] for lvl in pyr[:levels]]))
+
+
+def _check_counter(gn_iterations: Optional[torch.Tensor], dev) -> None:
+    if gn_iterations is not None:
+        _require(gn_iterations.shape == (1,) and gn_iterations.dtype == torch.int32
+                 and gn_iterations.device == dev, f"gn_iterations must be (1,) int32 on {dev}")
+        gn_iterations.zero_()
 
 
 def klt_pyramid_anchored_kernel(
@@ -103,17 +124,8 @@ def klt_pyramid_anchored_kernel(
         _require(t.device == dev and t.is_contiguous(), f"{name} must be contiguous on {dev}")
     for name, t in (("anchors", anchors), ("anchor_uv", anchor_uv), ("kp2_init", kp2_init)):
         _require(t.dtype == torch.float32, f"{name} must be float32")
-    for k, lvl in enumerate(pyr2[:levels]):
-        _require(lvl.dim() == 2 and lvl.dtype == torch.float32 and lvl.device == dev
-                 and lvl.is_contiguous(), f"pyramid level {k} must be a contiguous 2-D float32 tensor on {dev}")
-    if gn_iterations is not None:
-        _require(gn_iterations.shape == (1,) and gn_iterations.dtype == torch.int32
-                 and gn_iterations.device == dev, f"gn_iterations must be (1,) int32 on {dev}")
-        gn_iterations.zero_()
-
-    lvl_ptr = (ctypes.c_void_p * levels)(*[lvl.data_ptr() for lvl in pyr2[:levels]])
-    h_arr = (ctypes.c_int * levels)(*[lvl.shape[0] for lvl in pyr2[:levels]])
-    w_arr = (ctypes.c_int * levels)(*[lvl.shape[1] for lvl in pyr2[:levels]])
+    lvl_ptr, h_arr, w_arr = _level_arrays(pyr2, levels, dev, "pyramid")
+    _check_counter(gn_iterations, dev)
     kp_out = torch.empty((n, 2), dtype=torch.float32, device=dev)
     ok_out = torch.empty((n,), dtype=torch.bool, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -145,14 +157,109 @@ def klt_pyramid_anchored(
     gn_iterations: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dispatch on `cfg.backend` ("auto" | "kernel" | "eager") and the device."""
-    kind = kp2_init.device.type
     args = (anchors, anchor_uv, pyr2, kp2_init, valid, cfg, min_zncc, gn_iterations)
-    if cfg.backend == "eager":
-        return klt_pyramid_anchored_eager(*args)
-    if cfg.backend not in ("auto", "kernel"):
-        raise ValueError(f"unknown klt_backend {cfg.backend!r} (auto | kernel | eager)")
+    return _dispatch(klt_pyramid_anchored_kernel, klt_pyramid_anchored_eager, cfg.backend,
+                     kp2_init.device.type, args)
+
+
+# --- frame mode ---------------------------------------------------------------
+
+def klt_pyramid_eager(
+    pyr1: Sequence[torch.Tensor],
+    pyr2: Sequence[torch.Tensor],
+    kp1: torch.Tensor,
+    kp2_init: torch.Tensor,
+    valid: torch.Tensor,
+    cfg: klt_ops.KLTConfig = klt_ops.KLTConfig(),
+    gn_iterations: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch frame-mode pyramid (ops/klt.py:179-226 of the
+    reference).  `gn_iterations`, if given, is filled with the GN iterations
+    summed over lanes and levels."""
+    levels = cfg.levels
+    if gn_iterations is not None:
+        gn_iterations.zero_()
+    scale_top = cfg.scale ** (levels - 1)
+    kp1_pyr = kp1 * scale_top
+    kp2_pyr = kp2_init * scale_top
+    success = valid
+    for level in range(levels - 1, -1, -1):
+        kp2_pyr, success = klt_ops.klt_level(pyr1[level], pyr2[level], kp1_pyr, kp2_pyr, valid, cfg,
+                                             gn_iterations)
+        if level > 0:
+            # Upscale; failed lanes restart from kp1 at the next level.
+            kp1_pyr = kp1_pyr / cfg.scale
+            kp2_pyr = torch.where(success[:, None], kp2_pyr / cfg.scale, kp1_pyr)
+    return kp2_pyr, success
+
+
+def klt_pyramid_kernel(
+    pyr1: Sequence[torch.Tensor],
+    pyr2: Sequence[torch.Tensor],
+    kp1: torch.Tensor,
+    kp2_init: torch.Tensor,
+    valid: torch.Tensor,
+    cfg: klt_ops.KLTConfig = klt_ops.KLTConfig(),
+    gn_iterations: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of csrc/klt_anchored.cu's frame-mode kernel: the templates
+    sampled from `pyr1` inside the launch, all `cfg.levels` levels, failed
+    lanes restarted from kp1.  Same contract as `klt_pyramid_eager`."""
+    n = kp1.shape[0]
+    levels = cfg.levels
+    dev = kp1.device
+    _require(dev.type == "cuda", f"needs CUDA tensors, got {dev}")
+    _require(cfg.half_patch == KERNEL_HALF_PATCH, f"half_patch must be {KERNEL_HALF_PATCH}")
+    _require(1 <= levels <= _MAX_LEVELS and len(pyr1) >= levels and len(pyr2) >= levels, "bad level count")
+    _require(kp1.shape == (n, 2) and kp2_init.shape == (n, 2), "kp1 / kp2_init must be (N, 2)")
+    _require(valid.shape == (n,) and valid.dtype == torch.bool, "valid must be (N,) bool")
+    for name, t in (("kp1", kp1), ("kp2_init", kp2_init), ("valid", valid)):
+        _require(t.device == dev and t.is_contiguous(), f"{name} must be contiguous on {dev}")
+    for name, t in (("kp1", kp1), ("kp2_init", kp2_init)):
+        _require(t.dtype == torch.float32, f"{name} must be float32")
+    ptr1, h1, w1 = _level_arrays(pyr1, levels, dev, "first pyramid")
+    ptr2, h2, w2 = _level_arrays(pyr2, levels, dev, "second pyramid")
+    _check_counter(gn_iterations, dev)
+
+    kp_out = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    ok_out = torch.empty((n,), dtype=torch.bool, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _lib()
+    rc = lib.legoslam_klt_pyramid_frame(
+        ptr1, h1, w1, ptr2, h2, w2, levels, kp1.data_ptr(), kp2_init.data_ptr(), valid.data_ptr(), n,
+        cfg.half_patch, cfg.iterations, float(cfg.eps * cfg.eps), float(cfg.scale),
+        float(cfg.scale ** (levels - 1)), int(bool(cfg.inverse)), kp_out.data_ptr(), ok_out.data_ptr(),
+        None if gn_iterations is None else gn_iterations.data_ptr(), stream,
+    )
+    _build.check(lib, rc, "klt_pyramid_kernel")
+    klt_pyramid_kernel.launches += 1
+    return kp_out, ok_out
+
+
+klt_pyramid_kernel.launches = 0
+
+
+def _dispatch(kernel_fn, eager_fn, backend: str, kind: str, args):
+    if backend == "eager":
+        return eager_fn(*args)
+    if backend not in ("auto", "kernel"):
+        raise ValueError(f"unknown klt_backend {backend!r} (auto | kernel | eager)")
     if kind == "cuda":
-        return klt_pyramid_anchored_kernel(*args)
-    if kind == "cpu" and cfg.backend == "auto":
-        return klt_pyramid_anchored_eager(*args)
-    raise RuntimeError(f"klt backend {cfg.backend!r} has no path for {kind} tensors")
+        return kernel_fn(*args)
+    if kind == "cpu" and backend == "auto":
+        return eager_fn(*args)
+    raise RuntimeError(f"klt backend {backend!r} has no path for {kind} tensors")
+
+
+def klt_pyramid(
+    pyr1: Sequence[torch.Tensor],
+    pyr2: Sequence[torch.Tensor],
+    kp1: torch.Tensor,
+    kp2_init: torch.Tensor,
+    valid: torch.Tensor,
+    cfg: klt_ops.KLTConfig = klt_ops.KLTConfig(),
+    gn_iterations: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dispatch on `cfg.backend` ("auto" | "kernel" | "eager") and the device."""
+    args = (pyr1, pyr2, kp1, kp2_init, valid, cfg, gn_iterations)
+    return _dispatch(klt_pyramid_kernel, klt_pyramid_eager, cfg.backend, kp1.device.type, args)

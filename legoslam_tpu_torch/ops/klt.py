@@ -1,15 +1,17 @@
-"""Anchored pyramid KLT, batched over keypoints (twin of
-legoslam_tpu/ops/klt.py, anchored path).
+"""Pyramid KLT, batched over keypoints (twin of legoslam_tpu/ops/klt.py):
+the anchored tracker and the frame-to-frame one.
 
-Per keypoint: Gauss-Newton LK of a fixed keyframe template (a 7x7 patch
-with a 1-px gradient ring, "halo") against the current image, at most 10
-iterations, central-difference gradients, a 2x2 normal-equation solve, stop
-on cost increase, convergence at |update| < eps, and the inverse-
-compositional variant that freezes J and H from the template.
+Per keypoint: Gauss-Newton LK of a fixed template (a 7x7 patch with a 1-px
+gradient ring, "halo") against the second image, at most 10 iterations,
+central-difference gradients, a 2x2 normal-equation solve, stop on cost
+increase, convergence at |update| < eps, and the inverse-compositional
+variant that freezes J and H from the template.  Anchored tracking takes the
+template from stored keyframe patches; frame mode (`klt_level`,
+`klt_pyramid`, `track`) samples it from the first image at every level.
 
-This module holds the plain PyTorch formulation.  `klt_pyramid_anchored`
-dispatches on `KLTConfig.backend` and the tensors' device to the CUDA kernel
-(csrc/klt_anchored.cu) or to `klt_pyramid_anchored_eager`
+This module holds the plain PyTorch formulation.  `klt_pyramid_anchored` and
+`klt_pyramid` dispatch on `KLTConfig.backend` and the tensors' device to the
+CUDA kernels (csrc/klt_anchored.cu) or to their plain versions
 (kernels/klt.py).
 """
 
@@ -19,7 +21,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from legoslam_tpu_torch.ops import interp
+from legoslam_tpu_torch.ops import interp, pyramid
 
 
 class KLTConfig(NamedTuple):
@@ -127,6 +129,22 @@ def klt_level_anchored(
     return kp2_out, succ & in_img & valid
 
 
+def klt_level(
+    img1: torch.Tensor,
+    img2: torch.Tensor,
+    kp1: torch.Tensor,
+    kp2: torch.Tensor,
+    valid: torch.Tensor,
+    cfg: KLTConfig = KLTConfig(),
+    gn_iterations: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-level GN flow between two images (algorithm.cpp:37-125): the
+    template is `img1`'s halo window at `kp1`, the GN loop that of
+    `klt_level_anchored`.  Returns (kp2_out (N, 2), success (N,))."""
+    anchor = interp.sample_patches(img1, kp1, 2 * cfg.half_patch + 3)
+    return klt_level_anchored(anchor, img2, kp1, kp2, valid, cfg, gn_iterations)
+
+
 def zncc_gate(core: torch.Tensor, img: torch.Tensor, kp: torch.Tensor, min_zncc: float) -> torch.Tensor:
     """ZNCC of template cores (N, P, P) against the patches at kp in img > min_zncc."""
     cur = interp.sample_patches(img, kp, core.shape[-1])
@@ -164,3 +182,44 @@ def klt_pyramid_anchored(
 
     return klt_kernels.klt_pyramid_anchored(anchors, anchor_uv, pyr2, kp2_init, valid, cfg, min_zncc,
                                             gn_iterations)
+
+
+def klt_pyramid(
+    pyr1: Sequence[torch.Tensor],
+    pyr2: Sequence[torch.Tensor],
+    kp1: torch.Tensor,
+    kp2_init: torch.Tensor,
+    valid: torch.Tensor,
+    cfg: KLTConfig = KLTConfig(),
+    gn_iterations: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Coarse-to-fine frame-to-frame tracking (algorithm.cpp:128-206).
+
+    Args:
+      pyr1, pyr2: image pyramids (finest first, >= cfg.levels levels).
+      kp1: (N, 2) keypoints in pyr1 level 0.
+      kp2_init: (N, 2) initial guesses in pyr2 level 0.
+      valid: (N,) lanes to track.
+      gn_iterations: optional (1,) int32 work count, as in
+        `klt_pyramid_anchored`.
+
+    Every level gets `valid`; a lane that fails a level restarts the next
+    one from kp1; there is no appearance gate.  Dispatches per `cfg.backend`
+    and the device (kernels/klt.py).  Returns (kp2 (N, 2), success (N,))."""
+    from legoslam_tpu_torch.kernels import klt as klt_kernels
+
+    return klt_kernels.klt_pyramid(pyr1, pyr2, kp1, kp2_init, valid, cfg, gn_iterations)
+
+
+def track(
+    img1: torch.Tensor,
+    img2: torch.Tensor,
+    kp1: torch.Tensor,
+    kp2_init: torch.Tensor,
+    valid: torch.Tensor,
+    cfg: KLTConfig = KLTConfig(),
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Convenience: build both pyramids and track (LKOpticalFlow4Layer)."""
+    pyr1 = tuple(pyramid.build_pyramid(img1, cfg.levels))
+    pyr2 = tuple(pyramid.build_pyramid(img2, cfg.levels))
+    return klt_pyramid(pyr1, pyr2, kp1, kp2_init, valid, cfg)

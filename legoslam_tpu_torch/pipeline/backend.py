@@ -1,5 +1,5 @@
 """Backend: sliding-window bundle adjustment over the active map (twin of
-legoslam_tpu/pipeline/backend.py, without the marginalization prior).
+legoslam_tpu/pipeline/backend.py).
 
 Re-designs `Backend` (src/backend_lego.cpp): one cycle is the function
 `ba_step(map) -> (map', stats)` over the fixed-shape world state.  The graph
@@ -17,10 +17,11 @@ reads from the device.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from legoslam_tpu_torch.geometry import se3
 from legoslam_tpu_torch.geometry.camera import StereoRig
 from legoslam_tpu_torch.pipeline.frontend import FrontendConfig, _intr
 from legoslam_tpu_torch.pipeline.state import WorldMap
@@ -81,6 +82,10 @@ class BAResult(NamedTuple):
     out_l: torch.Tensor        # (KW, NF) bool outlier verdicts on the left grid
     out_r: torch.Tensor        # (KW, NF) bool ... and the right grid
     stats: BAStats
+    # With use_marg_prior: (S (6KW, 6KW), b (6KW,), poses (KW, 4, 4), kf_id
+    # (KW,)), the window's pose information at the optimum, for the next
+    # eviction to marginalize.
+    info: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]] = None
 
 
 def build_problem(cfg: FrontendConfig, rig: StereoRig, wmap: WorldMap) -> Tuple[BAProblem, torch.Tensor]:
@@ -161,13 +166,27 @@ def adaptive_chi2_threshold(chis: torch.Tensor, e_valid: torch.Tensor, ba_cfg: B
 def solve_window(cfg: FrontendConfig, rig: StereoRig, wmap: WorldMap, ba_cfg: BAConfig = BAConfig()) -> BAResult:
     """Snapshot -> LM solve -> adaptive outlier classification, without the
     write-back (Backend::Optimize up to backend_lego.cpp:194)."""
-    if cfg.use_marg_prior:
-        raise NotImplementedError("use_marg_prior is not ported yet")
     problem, counts = build_problem(cfg, rig, wmap)
     lm_cfg = lm_ops.LMConfig(iterations=ba_cfg.iterations, strategy=ba_cfg.strategy,
                              linear_solver=ba_cfg.linear_solver, trace=ba_cfg.trace)
+
+    # Marginalization prior on the window poses (problem.cpp:338-355): the
+    # stored sqrt-form prior, masked onto the slots that still hold the
+    # keyframes it was built for, and weighted.
+    pose_prior = None
+    if cfg.use_marg_prior:
+        mg = wmap.marg
+        slot_ok = wmap.kf_valid & (mg.prior_kf_id >= 0) & (wmap.kf_id == mg.prior_kf_id)
+        m6 = slot_ok.repeat_interleave(6).to(wmap.kf_pose.dtype)
+        w = cfg.marg_prior_weight ** 0.5
+        # Zero columns: no pull on recycled slots, which also linearize at
+        # their own current pose (dx = 0 there).
+        T_lin = torch.where(slot_ok[:, None, None], mg.prior_T, wmap.kf_pose)
+        pose_prior = (mg.prior_J * m6[None, :] * w, mg.prior_err * w, T_lin)
+
     state, res = lm_ops.solve_ba(problem.graph, problem.poses, problem.points, kernel=robust.HUBER,
-                                 delta=ba_cfg.chi2_threshold, cfg=lm_cfg, engine=ba_cfg.engine)
+                                 delta=ba_cfg.chi2_threshold, cfg=lm_cfg, engine=ba_cfg.engine,
+                                 pose_prior=pose_prior)
 
     # Outlier classification at the optimum (robust chi2 per edge, raw points).
     chis = schur.edge_chi2(problem.graph, state.poses, state.points, robust.HUBER, ba_cfg.chi2_threshold)
@@ -186,10 +205,23 @@ def solve_window(cfg: FrontendConfig, rig: StereoRig, wmap: WorldMap, ba_cfg: BA
         n_active_landmarks=counts[0], n_dropped_landmarks=counts[1],
         lam=res.lam, trace=res.trace, attempts=res.attempts,
     )
+
+    # Window pose information at the optimum for the next eviction to
+    # marginalize: the undamped Schur-reduced system plus the prior itself,
+    # so information accumulates across evictions.
+    info = None
+    if pose_prior is not None:
+        blocks_f = schur.build_blocks(problem.graph, state.poses, state.points, robust.HUBER, ba_cfg.chi2_threshold)
+        S_f, b_f, _ = schur.schur_reduce(blocks_f, problem.graph.point_valid, 0.0, "default")
+        prior_J, prior_err, T_lin = pose_prior
+        r_p = prior_err + prior_J @ se3.se3_log(state.poses @ se3.se3_inv(T_lin)).reshape(-1)
+        info = (S_f + prior_J.T @ prior_J, b_f - prior_J.T @ r_p, state.poses, wmap.kf_id)
+
     return BAResult(
         kf_id=wmap.kf_id, kf_frame_id=wmap.kf_frame_id, active_ids=problem.active_ids,
         point_valid=problem.graph.point_valid, poses=state.poses, points=state.points,
         out_l=out_grid[: KW * NF].reshape(KW, NF), out_r=out_grid[KW * NF:].reshape(KW, NF), stats=stats,
+        info=info,
     )
 
 
@@ -218,7 +250,12 @@ def merge_ba_result(wmap: WorldMap, result: BAResult) -> WorldMap:
     out_r = result.out_r & slot_match[:, None] & wmap.kf_obs_right
     dec = out_l.to(torch.int32) + out_r.to(torch.int32)
     lm_idx = torch.clamp(wmap.kf_lm, min=0).long().reshape(-1)
+    marg = wmap.marg
+    if result.info is not None:
+        S_f, b_f, T_f, kf_id_f = result.info
+        marg = marg.replace(info_S=S_f, info_b=b_f, info_T=T_f, info_kf_id=kf_id_f)
     return wmap.replace(
+        marg=marg,
         kf_pose=kf_pose,
         lm_pos=lm_pos[:ML],
         lm_obs=wmap.lm_obs.clone().index_add_(0, lm_idx, -dec.reshape(-1)),

@@ -1,6 +1,6 @@
 """Frontend functions: tracking, pose, detection, stereo matching,
 triangulation, keyframe insertion, stereo bootstrap (twin of
-legoslam_tpu/pipeline/frontend.py; anchored tracking and scanline stereo).
+legoslam_tpu/pipeline/frontend.py).
 
 Pure functions over the fixed-shape state (pipeline/state.py): each returns
 new state and never writes into its inputs.  Scatters mirror the
@@ -27,7 +27,7 @@ from legoslam_tpu_torch.ops import klt as klt_ops
 from legoslam_tpu_torch.ops import stereo as stereo_ops
 from legoslam_tpu_torch.pipeline.state import Capacities, Features, WorldMap
 from legoslam_tpu_torch.solver import lm as lm_ops
-from legoslam_tpu_torch.solver import reprojection
+from legoslam_tpu_torch.solver import marginalization, reprojection
 
 
 class FrontendConfig(NamedTuple):
@@ -52,16 +52,26 @@ class FrontendConfig(NamedTuple):
     num_active_keyframes: int = 15
     min_dis_th: float = 0.2
     sing_ratio_threshold: float = 1e-3
-    # Only the anchored tracker and the scanline matcher are ported; the
-    # reference's "frame" tracking and "klt" stereo raise.
+    # Forward-backward verification thresholds in px (0 disables) of the
+    # "klt" stereo matcher and the "frame" track mode.
+    stereo_fb_threshold: float = 0.6
+    track_fb_threshold: float = 0.8
+    # "scanline" (epipolar coarse scan + 1-D GN; rectified rigs) or "klt"
+    # (general 2-D pyramid KLT, frontend_g2o.cpp:495-535).
     stereo_matcher: str = "scanline"
+    # "anchored": track keyframe templates; "frame": last-frame-to-current
+    # tracking (frontend_g2o.cpp:453-492).
     track_mode: str = "anchored"
     track_min_zncc: float = 0.5
     # Pyramid levels of the anchored tracker (0 = all of klt.levels).
     track_levels: int = 0
     scanline: stereo_ops.ScanlineConfig = stereo_ops.ScanlineConfig()
     max_keyframe_gap: int = 1_000_000
+    # Fold evicted keyframes' information into a prior on the surviving
+    # window poses (solver/marginalization.py); the weight tempers the
+    # information that re-observed landmarks would count twice.
     use_marg_prior: bool = False
+    marg_prior_weight: float = 0.5
 
     @staticmethod
     def from_config(cfg) -> "FrontendConfig":
@@ -104,12 +114,15 @@ class FrontendConfig(NamedTuple):
             num_active_keyframes=cfg["num_active_keyframes"],
             min_dis_th=float(cfg["min_dis_th"]),
             sing_ratio_threshold=float(cfg["sing_ratio_threshold"]),
+            stereo_fb_threshold=float(cfg["stereo_fb_threshold"]),
+            track_fb_threshold=float(cfg["track_fb_threshold"]),
             stereo_matcher=cfg["stereo_matcher"],
             max_keyframe_gap=int(cfg["max_keyframe_gap"]),
             track_mode=cfg["track_mode"],
             track_min_zncc=float(cfg["track_min_zncc"]),
             track_levels=int(cfg["track_levels"]),
             use_marg_prior=bool(cfg["use_marg_prior"]),
+            marg_prior_weight=float(cfg["marg_prior_weight"]),
         )
 
 
@@ -125,18 +138,23 @@ def _safe_gather_lm(lm_pos: torch.Tensor, lm_idx: torch.Tensor) -> torch.Tensor:
 def track_last_frame(
     cfg: FrontendConfig,
     rig: StereoRig,
+    pyr_last,
     pyr_cur,
     feats: Features,
     lm_pos: torch.Tensor,
     T_prior: torch.Tensor,
     rel_motion: torch.Tensor = None,
 ) -> Features:
-    """TrackLastFrame (frontend_g2o.cpp:453-492), anchored: track keyframe
-    templates into the current frame, seeding landmark-linked lanes with
-    their projection under the constant-velocity prior and unlinked lanes
-    with the infinite-depth (rotation-only) flow of that prior."""
-    if cfg.track_mode != "anchored":
-        raise NotImplementedError(f"track_mode {cfg.track_mode!r} is not ported (anchored only)")
+    """TrackLastFrame (frontend_g2o.cpp:453-492): track features into the
+    current frame, seeding landmark-linked lanes with their projection under
+    the constant-velocity prior and unlinked lanes with the infinite-depth
+    (rotation-only) flow of that prior.
+
+    track_mode "anchored" matches keyframe templates; "frame" is the
+    last-frame-to-current KLT over all pyramid levels with an optional
+    forward-backward gate."""
+    if cfg.track_mode not in ("anchored", "frame"):
+        raise ValueError(f"unknown track_mode {cfg.track_mode!r} (anchored | frame)")
     has_lm = feats.lm >= 0
     proj = rig.left.world2pixel(_safe_gather_lm(lm_pos, feats.lm), T_prior)
     if rel_motion is not None:
@@ -150,16 +168,32 @@ def track_last_frame(
         rot_guess = torch.stack([c.fx * d[:, 0] / z + c.cx, c.fy * d[:, 1] / z + c.cy], dim=-1)
     else:
         rot_guess = feats.uv
-    guess = torch.where(has_lm[:, None], proj, rot_guess)
-    klt_cfg = cfg.klt
-    if 0 < cfg.track_levels < klt_cfg.levels:
-        # anchors are stored finest-first: track on the finest track_levels
-        klt_cfg = klt_cfg._replace(levels=cfg.track_levels)
-    kp2, ok = klt_ops.klt_pyramid_anchored(
-        feats.anchor, feats.anchor_uv, pyr_cur, guess.contiguous(), feats.valid, klt_cfg,
-        min_zncc=cfg.track_min_zncc,
-    )
+    guess = torch.where(has_lm[:, None], proj, rot_guess).contiguous()
+    if cfg.track_mode == "anchored":
+        klt_cfg = cfg.klt
+        if 0 < cfg.track_levels < klt_cfg.levels:
+            # anchors are stored finest-first: track on the finest track_levels
+            klt_cfg = klt_cfg._replace(levels=cfg.track_levels)
+        kp2, ok = klt_ops.klt_pyramid_anchored(
+            feats.anchor, feats.anchor_uv, pyr_cur, guess, feats.valid, klt_cfg,
+            min_zncc=cfg.track_min_zncc,
+        )
+    else:
+        uv = feats.uv.contiguous()
+        kp2, ok = klt_ops.klt_pyramid(pyr_last, pyr_cur, uv, guess, feats.valid, cfg.klt)
+        ok = _forward_backward(cfg.klt, pyr_cur, pyr_last, kp2, uv, ok, cfg.track_fb_threshold)
     return feats.replace(uv=kp2, uv_r=torch.zeros_like(kp2), has_right=torch.zeros_like(ok), valid=ok)
+
+
+def _forward_backward(klt_cfg, pyr_to, pyr_from, kp_to, kp_from, ok, threshold: float) -> torch.Tensor:
+    """Forward-backward gate of a frame-mode KLT pass: track the results
+    back (lanes `ok`, starting from `kp_from`) and keep the lanes that
+    return within `threshold` px of where they came from (0 disables)."""
+    if threshold <= 0:
+        return ok
+    kp_back, ok_b = klt_ops.klt_pyramid(pyr_to, pyr_from, kp_to, kp_from, ok, klt_cfg)
+    rt = torch.sum((kp_back - kp_from) ** 2, dim=-1)
+    return ok & ok_b & (rt < threshold**2)
 
 
 def estimate_current_pose(
@@ -223,17 +257,31 @@ def find_features_in_right(
     pyr_left,
     pyr_right,
     feats: Features,
+    lm_pos: torch.Tensor,
+    T_cur: torch.Tensor,
 ) -> Features:
-    """FindFeaturesInRight (frontend_g2o.cpp:495-535), scanline matcher:
-    epipolar coarse scan + 1-D GN, the disparity range from the depth gates
-    (computed on the host from the rig's float intrinsics)."""
-    if cfg.stereo_matcher != "scanline":
-        raise NotImplementedError(f"stereo_matcher {cfg.stereo_matcher!r} is not ported (scanline only)")
-    fxb = float(rig.left.fx) * float(rig.right.baseline)
-    z_inf = max(cfg.stereo_depth_inferior_limit, 0.5)
-    d_max = fxb / z_inf
-    d_lo = fxb / cfg.stereo_depth_superior_limit
-    kp_r, ok = stereo_ops.match(pyr_left, pyr_right, feats.uv, feats.valid, d_lo, d_max, cfg.scanline)
+    """FindFeaturesInRight (frontend_g2o.cpp:495-535).
+
+    stereo_matcher "scanline": epipolar coarse scan + 1-D GN, the disparity
+    range from the depth gates (computed on the host from the rig's float
+    intrinsics).  "klt": general 2-D pyramid KLT left to right, seeded by
+    the landmark projections into the right camera, with an optional
+    forward-backward gate."""
+    if cfg.stereo_matcher == "scanline":
+        fxb = float(rig.left.fx) * float(rig.right.baseline)
+        z_inf = max(cfg.stereo_depth_inferior_limit, 0.5)
+        d_max = fxb / z_inf
+        d_lo = fxb / cfg.stereo_depth_superior_limit
+        kp_r, ok = stereo_ops.match(pyr_left, pyr_right, feats.uv, feats.valid, d_lo, d_max, cfg.scanline)
+        return feats.replace(uv_r=kp_r, has_right=ok)
+    if cfg.stereo_matcher != "klt":
+        raise ValueError(f"unknown stereo_matcher {cfg.stereo_matcher!r} (scanline | klt)")
+    has_lm = feats.lm >= 0
+    proj = rig.right.world2pixel(_safe_gather_lm(lm_pos, feats.lm), T_cur)
+    guess = torch.where(has_lm[:, None], proj, feats.uv).contiguous()
+    uv = feats.uv.contiguous()
+    kp_r, ok = klt_ops.klt_pyramid(pyr_left, pyr_right, uv, guess, feats.valid, cfg.klt)
+    ok = _forward_backward(cfg.klt, pyr_right, pyr_left, kp_r, uv, ok, cfg.stereo_fb_threshold)
     return feats.replace(uv_r=kp_r, has_right=ok)
 
 
@@ -283,9 +331,12 @@ def _evict_if_full(cfg: FrontendConfig, wmap: WorldMap, T_cur: torch.Tensor) -> 
     holds num_active keyframes, drop the one nearest the current pose if it
     is nearer than min_dis_th, else the farthest; un-register its
     observations.  "Active" landmarks are derived (WorldMap.lm_active_mask),
-    so CleanMap needs no step of its own."""
-    if cfg.use_marg_prior:
-        raise NotImplementedError("use_marg_prior is not ported yet")
+    so CleanMap needs no step of its own.
+
+    With `use_marg_prior` the evicted keyframe's 6 coordinates are
+    marginalized out of the window's pose information at the last BA
+    linearization (wmap.marg.info_*), and the Schur complement is kept as a
+    sqrt-form prior on the survivors (problem.cpp:617-781)."""
     full = wmap.num_keyframes() >= cfg.num_active_keyframes
 
     rel = wmap.kf_pose @ se3.se3_inv(T_cur)
@@ -301,6 +352,23 @@ def _evict_if_full(cfg: FrontendConfig, wmap: WorldMap, T_cur: torch.Tensor) -> 
     lm_idx = torch.clamp(wmap.kf_lm[evict], min=0).long()
     dec = obs_l.to(torch.int32) + obs_r.to(torch.int32)
     lm_obs = wmap.lm_obs.clone().index_add_(0, lm_idx, -dec)
+
+    if cfg.use_marg_prior:
+        mg = wmap.marg
+        slots = torch.arange(wmap.kf_valid.shape[0], device=evict.device)
+        # Only slots that still hold the keyframe the information was
+        # linearized for take part; stale slots zero out.
+        slot_ok = (mg.info_kf_id >= 0) & (mg.info_kf_id == wmap.kf_id) & wmap.kf_valid
+        m6 = slot_ok.repeat_interleave(6).to(wmap.kf_pose.dtype)
+        factor = marginalization.marginalize(
+            mg.info_S * m6[:, None] * m6[None, :], mg.info_b * m6, (slots == evict).repeat_interleave(6), 6)
+        prior_kf_id = torch.where(slot_ok & (slots != evict), mg.info_kf_id, -1).to(torch.int32)
+        wmap = wmap.replace(marg=mg.replace(
+            prior_J=torch.where(full, factor.sqrt_J, mg.prior_J),
+            prior_err=torch.where(full, factor.err, mg.prior_err),
+            prior_T=torch.where(full, mg.info_T, mg.prior_T),
+            prior_kf_id=torch.where(full, prior_kf_id, mg.prior_kf_id),
+        ))
 
     def clear(slot_arr, fill):
         out = slot_arr.clone()
@@ -364,7 +432,7 @@ def insert_keyframe(
     wmap = _evict_if_full(cfg, wmap, T_cur)
     feats = detect_features(cfg, img_left, feats)
     feats = feats.replace(anchor=klt_ops.extract_anchors(pyr_left, feats.uv, cfg.klt), anchor_uv=feats.uv)
-    feats = find_features_in_right(cfg, rig, pyr_left, pyr_right, feats)
+    feats = find_features_in_right(cfg, rig, pyr_left, pyr_right, feats, wmap.lm_pos, T_cur)
     feats, wmap, born = triangulate_new_points(cfg, rig, feats, wmap, T_cur)
     return feats, _register_keyframe(wmap, feats, born, T_cur, frame_id)
 
@@ -386,10 +454,10 @@ def stereo_init(
     empty = Features.empty(cfg.caps, img_left.dtype, cfg.klt.levels, 2 * cfg.klt.half_patch + 3, dev)
     feats = detect_features(cfg, img_left, empty)
     feats = feats.replace(anchor=klt_ops.extract_anchors(pyr_left, feats.uv, cfg.klt), anchor_uv=feats.uv)
-    feats = find_features_in_right(cfg, rig, pyr_left, pyr_right, feats)
+    T0 = torch.eye(4, dtype=img_left.dtype, device=dev)
+    feats = find_features_in_right(cfg, rig, pyr_left, pyr_right, feats, wmap.lm_pos, T0)
     n_match = int((feats.valid & feats.has_right).sum())
     if n_match < cfg.num_features_init:
         return False, feats, wmap
-    T0 = torch.eye(4, dtype=img_left.dtype, device=dev)
     feats, wmap, born = triangulate_new_points(cfg, rig, feats, wmap, T0)
     return True, feats, _register_keyframe(wmap, feats, born, T0, frame_id)

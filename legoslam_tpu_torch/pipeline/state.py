@@ -3,8 +3,7 @@
 `Features` is the per-frame feature table, `WorldMap` the landmark table
 plus the keyframe window, `VOCarry` the frame-to-frame loop state.  They are
 dataclasses of tensors with the reference's field names, shapes and dtypes;
-`MargState` is carried as zeros so the layout matches (the marginalization
-prior is not ported yet).  The `*_from_numpy` converters take dicts of NumPy
+`MargState` is the marginalization prior's bookkeeping inside `WorldMap`.  The `*_from_numpy` converters take dicts of NumPy
 arrays keyed by the reference's field names (nested for `wmap`, `feats` and
 `marg`) and return port state on a given device: this is how reference
 state reaches the port in the parity tests.
@@ -79,16 +78,20 @@ class Features(_Tensors):
 
 @dataclass(frozen=True)
 class MargState(_Tensors):
-    """Marginalization bookkeeping; zeros while the prior is not ported."""
+    """Marginalization bookkeeping (`use_marg_prior`), slot-major like the
+    window: the prior left by the last eviction (frontend._evict_if_full)
+    and the window's pose information at the last BA optimum
+    (backend.solve_window), each with the poses it was linearized at and the
+    keyframe ids its slots held.  Zeros and -1 until the prior is in use."""
 
-    prior_J: torch.Tensor      # (KW*6, KW*6)
-    prior_err: torch.Tensor    # (KW*6,)
-    prior_T: torch.Tensor      # (KW, 4, 4)
-    prior_kf_id: torch.Tensor  # (KW,) int32
-    info_S: torch.Tensor       # (KW*6, KW*6)
-    info_b: torch.Tensor       # (KW*6,)
-    info_T: torch.Tensor       # (KW, 4, 4)
-    info_kf_id: torch.Tensor   # (KW,) int32
+    prior_J: torch.Tensor      # (KW*6, KW*6) sqrt-form prior Jacobian
+    prior_err: torch.Tensor    # (KW*6,) prior residual at its linearization
+    prior_T: torch.Tensor      # (KW, 4, 4) linearization poses of the prior
+    prior_kf_id: torch.Tensor  # (KW,) int32 keyframe id per slot, -1 = no prior
+    info_S: torch.Tensor       # (KW*6, KW*6) reduced pose information at the last BA optimum
+    info_b: torch.Tensor       # (KW*6,) its information vector
+    info_T: torch.Tensor       # (KW, 4, 4) the optimum's poses
+    info_kf_id: torch.Tensor   # (KW,) int32 keyframe id per slot at that solve
 
     @staticmethod
     def empty(caps: Capacities, dtype=torch.float32, device="cpu") -> "MargState":

@@ -15,6 +15,14 @@ runs as PyTorch ops on the card.
 
 `ba_mode` "inline" (the default) runs BA, "off" runs without it; "async"
 (the reference's overlapped backend) is not ported yet and raises.
+
+With `use_loop_closure` the driver feeds a `LoopCloser`
+(pipeline/loop_closure.py) from `_loop_hook`.  The reference registers, for
+each keyframe, the state of the frame after it (that frame's pose was
+estimated against the landmarks BA had just refined, so pose, features and
+points agree), drains a trailing keyframe from the final carry at the end
+of the stream, and resets the closer when tracking is LOST; the hook keeps
+exactly that, with one device-to-host copy per registered keyframe.
 """
 
 from __future__ import annotations
@@ -124,7 +132,7 @@ def process_frame(
     # feedback amplifies it (se3.so3_project).
     T_prior = se3.se3_orthonormalize(carry.rel_motion @ carry.T_cur)
     feats = frontend_mod.track_last_frame(
-        cfg, rig, pyr_l, carry.feats, carry.wmap.lm_pos, T_prior, rel_motion=carry.rel_motion
+        cfg, rig, carry.pyr_last, pyr_l, carry.feats, carry.wmap.lm_pos, T_prior, rel_motion=carry.rel_motion
     )
     n_tracked = feats.count()
     T_new, feats, n_in_t = frontend_mod.estimate_current_pose(cfg, rig, feats, carry.wmap.lm_pos, T_prior)
@@ -152,6 +160,26 @@ def process_frame(
     return VOCarry(int(status), feats, wmap, T_new, rel, pyr_l, since_kf), out
 
 
+def _apply_world_correction(carry: VOCarry, G: torch.Tensor) -> VOCarry:
+    """Re-anchor the live world after a loop closure (pipeline/loop_closure.py):
+    map points p' = G p, camera-from-world poses Q' = Q G^-1; the relative
+    motion model and the feature tables are frame-local and unaffected."""
+    G_inv = se3.se3_inv(G)
+    R, t = G[:3, :3], G[:3, 3]
+    wmap = carry.wmap
+    lm_pos = torch.where(wmap.lm_alive[:, None], wmap.lm_pos @ R.T + t[None, :], wmap.lm_pos)
+    kf_pose = torch.where(wmap.kf_valid[:, None, None], se3.se3_orthonormalize(wmap.kf_pose @ G_inv),
+                          wmap.kf_pose)
+    marg = wmap.marg.replace(
+        prior_T=se3.se3_orthonormalize(wmap.marg.prior_T @ G_inv),
+        info_T=se3.se3_orthonormalize(wmap.marg.info_T @ G_inv),
+    )
+    return carry.replace(
+        wmap=wmap.replace(lm_pos=lm_pos, kf_pose=kf_pose, marg=marg),
+        T_cur=se3.se3_orthonormalize(carry.T_cur @ G_inv),
+    )
+
+
 class VisualOdometry:
     """Host-side frame loop (the reference's `VisualOdometry` API).
 
@@ -174,9 +202,6 @@ class VisualOdometry:
             raise NotImplementedError("async window BA is not ported yet; use ba_mode 'inline' or 'off'")
         if ba_mode not in ("inline", "off"):
             raise ValueError(f"unknown ba_mode {ba_mode!r}")
-        for key in ("use_loop_closure", "use_marg_prior"):
-            if self.config[key]:
-                raise NotImplementedError(f"{key} is not ported yet")
         if int(self.config["viewer_every_n"]) > 0:
             raise NotImplementedError("the viewer is not ported yet")
         self.ba_mode = ba_mode
@@ -184,6 +209,8 @@ class VisualOdometry:
         self.frontend_cfg: Optional[frontend_mod.FrontendConfig] = None
         self.rig: Optional[StereoRig] = None
         self.ba_cfg: Optional[backend_mod.BAConfig] = None
+        self.loop_closer = None
+        self._hook_prev: Optional[Tuple[StereoFrame, FrameOutput]] = None
         self.carry: Optional[VOCarry] = None
         self.outputs: List[FrameOutput] = []
         self.frame_ids: List[int] = []
@@ -212,6 +239,21 @@ class VisualOdometry:
         )
         schur.check_engine(self.ba_cfg.engine)
         self.log_every = int(self.config["log_every_n_frames"])
+        self.loop_closer = None
+        if bool(self.config["use_loop_closure"]):
+            from legoslam_tpu_torch.pipeline.loop_closure import LoopCloser, LoopConfig
+
+            self.loop_closer = LoopCloser(
+                self.rig,
+                LoopConfig(
+                    zncc_min=float(self.config["loop_zncc_min"]),
+                    min_gap=int(self.config["loop_min_gap"]),
+                    min_inliers=int(self.config["loop_min_inliers"]),
+                    loop_weight=float(self.config["loop_edge_weight"]),
+                ),
+                device=self.device,
+            )
+        self._hook_prev = None
         self.carry = None
         self.outputs = []
         self.frame_ids = []
@@ -221,6 +263,7 @@ class VisualOdometry:
         """Process one frame (visual_odometry.cpp:59-70)."""
         frame = self.dataset.next_frame()
         if frame is None:
+            self._drain_hooks()
             return False
         self.process(frame)
         return True
@@ -232,11 +275,66 @@ class VisualOdometry:
             self.carry = initial_carry(self.frontend_cfg, frame.left.shape, torch.float32, self.device)
         self.carry, out = process_frame(self.frontend_cfg, self.rig, self.carry, img_l, img_r,
                                         int(frame.frame_id), self.ba_cfg, self.ba_mode == "inline")
+        if self.loop_closer is not None:
+            self._loop_hook(frame, out)
         self.outputs.append(out)
         self.frame_ids.append(frame.frame_id)
         if self.log_every > 0 and len(self.outputs) % self.log_every == 0:
             self._log_frame(frame.frame_id, out)
         return out
+
+    def _loop_hook(self, frame: StereoFrame, out: FrameOutput) -> None:
+        """Feed the loop closer: the frame after each keyframe is the one
+        registered (its pose, features and landmark positions describe one
+        frame, estimated against the map BA just refined), and a LOST frame
+        resets the closer when the next frame arrives."""
+        prev = self._hook_prev
+        self._hook_prev = (frame, out)
+        if prev is not None:
+            self._consume_flags(prev[1], frame, out.T_cw)
+
+    def _consume_flags(self, flags: FrameOutput, frame: StereoFrame, T_cw: torch.Tensor) -> None:
+        """Act on one frame's `status` and `kf_inserted`: `frame` and `T_cw`
+        are what the carry describes now."""
+        if flags.status == FrontendStatus.LOST:
+            self.loop_closer.reset()
+        elif flags.kf_inserted:
+            self._register_keyframe(frame, T_cw)
+
+    def _register_keyframe(self, frame: StereoFrame, T_cw: torch.Tensor) -> None:
+        """Hand the current carry's landmark-linked features to the loop
+        closer as one keyframe record (one device-to-host copy) and, if a
+        loop closes, re-anchor the live world."""
+        feats, wmap = self.carry.feats, self.carry.wmap
+        M = feats.uv.shape[0]
+        sel = feats.valid & (feats.lm >= 0)
+        pw = wmap.lm_pos[torch.clamp(feats.lm, min=0).long()]
+        v = torch.cat([T_cw.reshape(-1), feats.uv.reshape(-1), sel.to(T_cw.dtype), pw.reshape(-1)]).cpu().numpy()
+        uv = v[16:16 + 2 * M].reshape(M, 2)
+        keep = v[16 + 2 * M:16 + 3 * M] > 0.5
+        p_world = v[16 + 3 * M:].reshape(M, 3)
+        result = self.loop_closer.add_keyframe(int(frame.frame_id), np.asarray(frame.left),
+                                               v[:16].reshape(4, 4), uv[keep], p_world[keep])
+        if result is not None:
+            G = torch.as_tensor(result[1], dtype=torch.float32).to(self.device)
+            self.carry = _apply_world_correction(self.carry, G)
+
+    def _drain_hooks(self) -> None:
+        """End of stream: the last frame's flags were never consumed; a
+        trailing keyframe (often the one that closes a loop) is registered
+        from the final carry, which still describes that frame."""
+        prev, self._hook_prev = self._hook_prev, None
+        if self.loop_closer is not None and prev is not None:
+            frame, out = prev
+            self._consume_flags(out, frame, out.T_cw)
+
+    def keyframe_trajectory(self):
+        """(frame_ids, T_cw (N, 4, 4)) over the loop closer's keyframe
+        records, loop-corrected; empty without loop closure."""
+        lc = self.loop_closer
+        if lc is None or not lc.records:
+            return [], np.zeros((0, 4, 4))
+        return [r.frame_id for r in lc.records], np.stack([r.T_cw for r in lc.records])
 
     def _log_frame(self, frame_id: int, out: FrameOutput) -> None:
         """The reference's per-frame INFO log (frontend_lego.cpp:87,152,230 and

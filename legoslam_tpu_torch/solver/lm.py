@@ -162,18 +162,36 @@ def solve_ba(
     (backend_lego.cpp:161) over the active window, on the one engine of
     solver/schur.py ("soa" and "blocks" both select it).  Each attempt is
     one fused edge sweep: the candidate's chi and its assembly together.
-    The marginalization prior (`pose_prior`) is not ported yet and raises."""
+
+    pose_prior: optional (sqrt_J (6K, 6K), err0 (6K,), T_lin (K, 4, 4)), a
+    linearized marginalization prior on the poses (problem.cpp:338-355) with
+    residual r_p(x) = err0 + sqrt_J log(T T_lin^-1).  0.5 r_p.r_p joins chi,
+    J^T J the reduced pose system and -J^T r_p its right-hand side,
+    recomputed at every linearization (the running update of
+    problem.cpp:447-453, exactly).  It adds no host read."""
     schur.check_engine(engine)
     if pose_prior is not None:
-        raise NotImplementedError("the marginalization prior (pose_prior) is not ported yet")
+        prior_J, prior_err0, prior_T = pose_prior
+        prior_H = prior_J.T @ prior_J
+        T_lin_inv = se3.se3_inv(prior_T)
 
     def chi_build(st: BAState):
         blocks, chi = schur.build_blocks(graph, st.poses, st.points, kernel, delta, with_chi=True)
-        return chi, (blocks, schur.blocks_diag(blocks))
+        bprior = None
+        if pose_prior is not None:
+            # dx is the manifold offset from the linearization poses, in
+            # retract's exp(dx) T convention.
+            r = prior_err0 + prior_J @ se3.se3_log(st.poses @ T_lin_inv).reshape(-1)
+            chi = chi + 0.5 * torch.dot(r, r)
+            bprior = -(prior_J.T @ r)
+        return chi, (blocks, schur.blocks_diag(blocks), bprior)
 
     def solve_fn(aux, lam):
-        blocks, _ = aux
+        blocks, _, bprior = aux
         S, bs, Hll_inv = schur.schur_reduce(blocks, graph.point_valid, lam, cfg.strategy)
+        if bprior is not None:
+            S = S + prior_H
+            bs = bs + bprior
         dx_p = schur.damp_and_solve(S, bs, lam, cfg.strategy, method=cfg.linear_solver)
         return dx_p.reshape(-1, 6), schur.back_substitute(blocks, Hll_inv, dx_p)
 
@@ -187,9 +205,12 @@ def solve_ba(
     def dot_scale(aux, dx, lam):
         # 0.5 dx^T (lam * dx + b) over [pose; landmark] (problem.cpp:535);
         # strategy1 uses lam * diag(H) * dx (:564).
-        blocks, diag = aux
+        blocks, diag, bprior = aux
         flat = torch.cat([dx[0].reshape(-1), dx[1].reshape(-1)])
-        b = torch.cat([blocks.bp.reshape(-1), blocks.bl.reshape(-1)])
+        bp = blocks.bp.reshape(-1)
+        if bprior is not None:
+            bp = bp + bprior
+        b = torch.cat([bp, blocks.bl.reshape(-1)])
         if cfg.strategy == "strategy1":
             return 0.5 * torch.dot(flat, lam * diag * flat + b)
         return 0.5 * torch.dot(flat, lam * flat + b)

@@ -17,6 +17,12 @@ Renders the bench plane world (bench.py's sequence at 188x620), runs
 3. one `ba_step` on the map of the last keyframe, profiled alone: its wall
    time, kernel launches, device time, and host reads (CUDA's sync debug
    mode counts them).
+4. the frame-mode and loop-closure path: the same frames with `track_mode:
+   frame`, `stereo_matcher: klt` and `use_loop_closure` (the closer's
+   `min_gap` cut to 2 keyframes, so that the revisit-free bench world still
+   verifies candidates), under the profiler: ms/frame, device-busy share,
+   kernel launches per frame, the frame-mode KLT kernel's launches and
+   device time per launch, and the closer's stats.
 Every number is printed beside the card's name and power limit.
 """
 
@@ -57,8 +63,8 @@ class _Frames:
         return StereoFrame(self.i - 1, *self.frames[self.i - 1])
 
 
-def _vo(frames, rig, ba_mode="inline"):
-    config = Config({"stereo_depth_inferior_limit": 2.0, "stereo_depth_superior_limit": 60.0})
+def _vo(frames, rig, ba_mode="inline", **overrides):
+    config = Config({"stereo_depth_inferior_limit": 2.0, "stereo_depth_superior_limit": 60.0, **overrides})
     vo = VisualOdometry(config=config, dataset=_Frames(frames, rig), ba_mode=ba_mode, device="cuda")
     if not vo.init():
         raise RuntimeError("VisualOdometry.init failed")
@@ -177,6 +183,28 @@ def main() -> None:
           f"({100.0 * device_ms / wall_ms:.1f}%), LM iterations {stats.iterations} attempts {stats.attempts}, "
           f"host reads {reads}, {int(stats.n_active_landmarks)} active landmarks ({smi})")
     print(events.table(sort_by="self_device_time_total", row_limit=15))
+
+    # 4. the frame-mode + loop-closure path.
+    vo = _vo(frames, ds.rig, track_mode="frame", stereo_matcher="klt", use_loop_closure=True, loop_min_gap=2,
+             loop_zncc_min=0.3)
+    for _ in range(args.warmup):
+        vo.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        t0 = time.perf_counter()
+        while vo.step():
+            pass
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+    device_us = sum(e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA)
+    rows = [e for e in events if e.device_type == DeviceType.CUDA and "klt_pyramid_frame_kernel" in e.key]
+    count = sum(e.count for e in rows)
+    print(f"frame mode + klt stereo + loop closure, profiled {n} frames: wall {wall_us / n / 1e3:.3f} ms/frame "
+          f"(profiler on), device busy {100.0 * device_us / wall_us:.1f}% of wall, {_launches(events) / n:.0f} kernel "
+          f"launches/frame; klt_pyramid_frame_kernel {count} launches ({count / n:.2f} per frame), "
+          f"{sum(e.self_device_time_total for e in rows) / max(count, 1):.3f} us/launch of device time; keyframes "
+          f"{int(vo.keyframe_flags().sum())}, closer stats {vo.loop_closer.stats} ({smi})")
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """The numbers behind PERF.md's window-BA parity findings, on the CPU.
 
-    JAX_PLATFORMS=cpu python -m tests.ba_parity_report [--bench-world]
+    JAX_PLATFORMS=cpu python -m tests.ba_parity_report [--bench-world | --only-bench-world | --loop-records FILE]
 
 Not a test (pytest does not collect it); it runs what the parity tests
 check and prints the values beside their bars:
@@ -11,9 +11,20 @@ check and prints the values beside their bars:
    (tests/test_torch_backend.py): `solve_ba` with the oldest keyframe
    fixed, and the full `ba_step`, whose window may end a rigid motion away
    from the reference's, per LM strategy;
-3. with --bench-world: the JAX reference's BA-inline run of the 40-frame
-   bench world at `ba_assembly_precision: f32`, the keyframe count and ATE
-   that chip_smoke.py holds the port to (about 40 s).
+3. with --bench-world: the JAX reference's BA-inline runs of the 40-frame
+   bench world at `ba_assembly_precision: f32`, once with the defaults and
+   once with `track_mode: frame` and `stereo_matcher: klt`: the keyframe
+   counts and ATEs that chip_smoke.py holds the port to (about 40 s each);
+   and the port on the CPU in the second configuration, against that
+   reference run: keyframes, both ATEs, and the two trajectories' distance
+   after a rigid alignment (what the card's ATE bar there rests on);
+4. with --loop-records FILE: the keyframe records that
+   `scripts/loop_course_scan.py --dump` wrote on the card go through the
+   reference's `LoopCloser` and the port's (on the CPU) in order; prints
+   every closure of each beside the card's, with the measured loop
+   transform's distance from the ground truth's (--save-pair OUT writes
+   the two records of the card's worst closure:
+   tests/data/loop_pair_tail80.npz was made so).
 """
 
 from __future__ import annotations
@@ -87,24 +98,97 @@ def bench_world() -> None:
     from legoslam_tpu.utils.config import Config as JConfig
 
     n = 40
-    ds = SyntheticPlanesDataset(n_frames=n, shape=(188, 620), focal=360.0, baseline=0.54, speed=0.12,
-                                half_width=10.0, length=200.0)
-    vo = JVisualOdometry(config=JConfig({"stereo_depth_inferior_limit": 2.0, "stereo_depth_superior_limit": 60.0,
-                                         "ba_assembly_precision": "f32"}), dataset=ds)
-    assert vo.ba_mode == "inline" and vo.init()
-    vo.run()
-    T = vo.trajectory_T_wc()
-    print(f"bench world, JAX reference, BA inline (f32): statuses {vo.statuses().tolist()}, keyframes "
-          f"{sum(bool(o.kf_inserted) for o in vo.outputs)}, "
-          f"ATE {evaluation.ate_rmse(T[:, :3, 3], ds.gt_T_wc[:n, :3, 3]):.6f} m")
+    for name, modes in (("defaults", {}), ("track_mode frame + stereo_matcher klt",
+                                           {"track_mode": "frame", "stereo_matcher": "klt"})):
+        ds = SyntheticPlanesDataset(n_frames=n, shape=(188, 620), focal=360.0, baseline=0.54, speed=0.12,
+                                    half_width=10.0, length=200.0)
+        vo = JVisualOdometry(config=JConfig({"stereo_depth_inferior_limit": 2.0, "stereo_depth_superior_limit": 60.0,
+                                             "ba_assembly_precision": "f32", **modes}), dataset=ds)
+        assert vo.ba_mode == "inline" and vo.init()
+        vo.run()
+        T = vo.trajectory_T_wc()
+        kf = np.asarray([bool(o.kf_inserted) for o in vo.outputs])
+        print(f"bench world, JAX reference, BA inline (f32), {name}: statuses {vo.statuses().tolist()}, keyframes "
+              f"{int(kf.sum())}, ATE {evaluation.ate_rmse(T[:, :3, 3], ds.gt_T_wc[:n, :3, 3]):.6f} m")
+        if not modes:
+            continue
+        from legoslam_tpu_torch.pipeline.dataset import SyntheticPlanesDataset as TDataset
+
+        tds = TDataset(n_frames=n, shape=(188, 620), focal=360.0, baseline=0.54, speed=0.12, half_width=10.0,
+                       length=200.0)
+        port = VisualOdometry(config=Config({"stereo_depth_inferior_limit": 2.0, "stereo_depth_superior_limit": 60.0,
+                                             **modes}), dataset=tds, device="cpu")
+        assert port.ba_mode == "inline" and port.init()
+        port.run()
+        P = port.trajectory_T_wc()
+        print(f"bench world, port on the CPU, {name}: statuses equal "
+              f"{bool((port.statuses() == vo.statuses()).all())}, keyframe flags equal "
+              f"{bool((port.keyframe_flags() == kf).all())} ({int(port.keyframe_flags().sum())}), ATE "
+              f"{evaluation.ate_rmse(P[:, :3, 3], tds.gt_T_wc[:n, :3, 3]):.6f} m; port against reference, rigidly "
+              f"aligned: {evaluation.ate_rmse(P[:, :3, 3], T[:, :3, 3]):.6f} m")
+
+
+def loop_records(path: str, save_pair: str = None) -> None:
+    from legoslam_tpu.pipeline import loop_closure as j_loop
+    from legoslam_tpu.pipeline.dataset import SyntheticPlanesDataset as JDataset
+    from legoslam_tpu_torch.pipeline import loop_closure
+    from legoslam_tpu_torch.pipeline.dataset import SyntheticPlanesDataset as TDataset
+
+    d = np.load(path)
+    world = dict(n_frames=1, shape=(188, 620), focal=360.0, baseline=0.54)
+    closers = {"reference": j_loop.LoopCloser(JDataset(**world).rig),
+               "port on the CPU": loop_closure.LoopCloser(TDataset(**world).rig, device="cpu")}
+    gt_cw = np.linalg.inv(d["gt_T_wc"][d["frame_id"]])
+
+    def off_truth(i, j, M):
+        return float(np.linalg.norm(M[:3, 3] - (gt_cw[i] @ np.linalg.inv(gt_cw[j]))[:3, 3]))
+
+    card = [(int(i), int(j), off_truth(i, j, M)) for (i, j), M, c in zip(d["edge"], d["M"], d["closed"]) if c]
+    print(f"loop records {path}: {len(d['frame_id'])} keyframes; the card closed (i, j, |t(M) - t(M_true)| m): "
+          f"{[(i, j, round(e, 3)) for i, j, e in card]}")
+    worst = max(card, key=lambda e: e[2])
+    for name, lc in closers.items():
+        closed = []
+        for k in range(len(d["frame_id"])):
+            n = int(d["n_feats"][k])
+            full = np.repeat(np.repeat(d["img_half"][k], 2, axis=0), 2, axis=1)  # add_keyframe takes every second pixel
+            before = dict(lc.stats)
+            chain = np.stack([r.T_cw for r in lc.records] + [d["T_cw"][k]])  # the poses `_verify` sees at keyframe k
+            out = lc.add_keyframe(int(d["frame_id"][k]), full, d["T_cw"][k], d["uv"][k, :n], d["p_world"][k, :n])
+            if out is not None:
+                i, j, M = lc.loop_edges[-1]
+                closed.append((i, j, round(off_truth(i, j, M), 3)))
+                if save_pair and name != "reference" and (i, j) == worst[:2]:
+                    ri, rj = lc.records[i], lc.records[j]
+                    np.savez_compressed(
+                        save_pair, i=i, j=j, T_cw=chain, M_card=d["M"][k], M_true=gt_cw[i] @ np.linalg.inv(gt_cw[j]),
+                        **{f"{f}_{w}": getattr(r, f) for w, r in (("i", ri), ("j", rj))
+                           for f in ("frame_id", "T_cw_obs", "img", "uv", "p_world", "n_feats")})
+                    print(f"  wrote the records of the closure ({i}, {j}) to {save_pair}")
+            if (out is not None) != bool(d["closed"][k]):
+                # from here on the recorded poses belong to another world epoch than this closer's
+                print(f"  {name}: parts from the card at keyframe {k} (frame {int(d['frame_id'][k])}): closed "
+                      f"{out is not None}, the card {bool(d['closed'][k])}; candidates tried here "
+                      f"{lc.stats['candidates'] - before['candidates']}")
+                break
+        print(f"  {name}: closed {closed}, stats {lc.stats}")
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bench-world", action="store_true")
+    ap.add_argument("--loop-records", default=None, metavar="FILE")
+    ap.add_argument("--save-pair", default=None, metavar="OUT",
+                    help="with --loop-records: write the two records of the card's worst closure, for tests/data")
+    ap.add_argument("--only-bench-world", action="store_true", help="skip the corridor and gauge reports")
     args = ap.parse_args()
-    corridor()
-    gauge()
+    if args.loop_records:
+        loop_records(args.loop_records, args.save_pair)
+        return
+    if not args.only_bench_world:
+        corridor()
+        gauge()
+    args.bench_world |= args.only_bench_world
     if args.bench_world:
         bench_world()
 

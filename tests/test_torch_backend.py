@@ -237,7 +237,8 @@ def test_merge_ba_result_on_moved_map(ref):
 
     jm = j_backend.merge_ba_result(_jtree(JWorldMap, moved), res)
     port_res = backend.BAResult(
-        **{f: t(np.asarray(getattr(res, f))) for f in backend.BAResult._fields if f != "stats"}, stats=None)
+        **{f: t(np.asarray(getattr(res, f))) for f in backend.BAResult._fields if f not in ("stats", "info")},
+        stats=None)
     m = backend.merge_ba_result(state.worldmap_from_numpy(moved), port_res)
     for name in ("kf_pose", "lm_pos", "lm_obs", "kf_obs_left", "kf_obs_right", "kf_valid", "kf_id"):
         np.testing.assert_array_equal(to_numpy(getattr(m, name)), np.asarray(getattr(jm, name)), err_msg=name)

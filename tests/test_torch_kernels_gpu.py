@@ -13,8 +13,12 @@ step is at the float rounding level, so one run may accept it and stop
 where the other rejects it and runs a rejection chain of up to
 false_cnt_threshold attempts, and the iteration or two around it.
 
+The frame-mode entry of the KLT kernel is held to the same bars, forward
+and backward, and its restart rule on lanes that fail the coarsest level.
+
 Window BA has no kernel of its own (PyTorch ops); its card run is held
 against the same call on a CPU copy of the map with chip_smoke.py's bars.
+So are loop verification (`LoopCloser._verify`) and `marginalize`.
 """
 
 import warnings
@@ -110,6 +114,84 @@ def test_klt_kernel_refuses_bad_input(cuda):
     with pytest.raises(ValueError):
         klt_k.klt_pyramid_anchored_kernel(anchors, kp, pyr2, guess, valid, cfg,
                                           gn_iterations=torch.zeros(1, dtype=torch.int64, device=cuda))
+
+
+def _frame_case(dev, levels, inverse, n=512, H=188, W=620, seed=0, shift=(1, 2)):
+    """Two images a shift apart, keypoints up to the border (so some 9x9
+    windows clamp on the coarse levels) and guesses a few px off."""
+    rng = np.random.default_rng(seed)
+    img1 = _smooth_image(rng, H, W)
+    img2 = torch.roll(img1, shift, (0, 1))
+    kp = torch.from_numpy(np.stack([rng.uniform(2, W - 2, n), rng.uniform(2, H - 2, n)], -1).astype(np.float32))
+    valid = torch.from_numpy(rng.uniform(size=n) > 0.1)
+    guess = kp + torch.from_numpy(rng.uniform(-2.0, 2.0, (n, 2)).astype(np.float32))
+    pyr1 = tuple(p.to(dev) for p in pyramid.build_pyramid(img1, levels))
+    pyr2 = tuple(p.to(dev) for p in pyramid.build_pyramid(img2, levels))
+    return pyr1, pyr2, kp.to(dev), guess.to(dev), valid.to(dev), klt.KLTConfig(levels=levels, inverse=inverse)
+
+
+@pytest.mark.parametrize("levels", [3, 4])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n", [512, 130])
+def test_klt_frame_kernel_matches_eager(cuda, levels, inverse, n):
+    """K1 in frame mode (templates sampled from the first pyramid inside the
+    launch, restart from kp1) against `klt_pyramid_eager`, forward and then
+    backward with `valid` = the forward pass's success; the anchored bars."""
+    pyr1, pyr2, kp, guess, valid, cfg = _frame_case(cuda, levels, inverse, n=n)
+    n0 = klt_k.klt_pyramid_kernel.launches
+    it_k = torch.full((1,), -1, dtype=torch.int32, device=cuda)
+    it_e = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    kp_k, ok_k = klt_k.klt_pyramid_kernel(pyr1, pyr2, kp, guess, valid, cfg, gn_iterations=it_k)
+    kp_e, ok_e = klt_k.klt_pyramid_eager(pyr1, pyr2, kp, guess, valid, cfg, gn_iterations=it_e)
+    kp_0, ok_0 = klt_k.klt_pyramid_kernel(pyr1, pyr2, kp, guess, valid, cfg)
+    assert torch.equal(kp_0, kp_k) and torch.equal(ok_0, ok_k)
+    assert abs(int(it_k) - int(it_e)) <= max(8, 0.02 * int(it_e)), (int(it_k), int(it_e))
+    # backward, from the kernel's forward result on both sides
+    bk_k, okb_k = klt_k.klt_pyramid_kernel(pyr2, pyr1, kp_k, kp, ok_k, cfg)
+    bk_e, okb_e = klt_k.klt_pyramid_eager(pyr2, pyr1, kp_k, kp, ok_k, cfg)
+    torch.cuda.synchronize()
+    assert klt_k.klt_pyramid_kernel.launches == n0 + 3
+    for (a, oa), (b, ob) in (((kp_k, ok_k), (kp_e, ok_e)), ((bk_k, okb_k), (bk_e, okb_e))):
+        oa, ob = oa.cpu().numpy(), ob.cpu().numpy()
+        assert (oa == ob).mean() >= 0.99
+        both = oa & ob
+        assert both.sum() > 200 * n // 512
+        np.testing.assert_allclose(a.cpu().numpy()[both], b.cpu().numpy()[both], rtol=0, atol=1e-2)
+    assert not bool((okb_k & ~ok_k).any())  # a lane invalid on the way back never succeeds
+
+
+def test_klt_frame_kernel_restarts_from_kp1(cuda):
+    """Guesses 400 px to the right put the lanes of the right part of the
+    image outside it: on the coarsest level their windows clamp onto the
+    border, the normal matrix is singular and the lane fails.  Such a lane
+    must restart the next level from kp1 inside the launch (the images are
+    identical, so it then converges back onto kp1); restarting from the
+    guess, the anchored rule, would fail it on every level."""
+    pyr1, pyr2, kp, _, valid, cfg = _frame_case(cuda, 4, False, shift=(0, 0))
+    guess = (kp + torch.tensor([400.0, 0.0], device=cuda)).contiguous()
+    kp_k, ok_k = klt_k.klt_pyramid_kernel(pyr1, pyr2, kp, guess, valid, cfg)
+    kp_e, ok_e = klt_k.klt_pyramid_eager(pyr1, pyr2, kp, guess, valid, cfg)
+    assert (ok_k == ok_e).float().mean().item() >= 0.97
+    both = (ok_k & ok_e).cpu().numpy()
+    np.testing.assert_allclose(kp_k.cpu().numpy()[both], kp_e.cpu().numpy()[both], rtol=0, atol=2e-2)
+    outside = valid & (kp[:, 0] + 400.0 > 640.0)
+    home = ok_k & ((kp_k - kp).norm(dim=-1) < 0.1)
+    assert int(outside.sum()) > 100
+    assert home[outside].float().mean().item() > 0.9, home[outside].float().mean().item()
+
+
+def test_klt_frame_auto_dispatch_and_bad_input(cuda):
+    pyr1, pyr2, kp, guess, valid, cfg = _frame_case(cuda, 3, False, n=64)
+    n0 = klt_k.klt_pyramid_kernel.launches
+    klt.klt_pyramid(pyr1, pyr2, kp, guess, valid, cfg)
+    klt.track(pyr1[0], pyr2[0], kp, guess, valid, cfg)
+    assert klt_k.klt_pyramid_kernel.launches == n0 + 2
+    with pytest.raises(ValueError):
+        klt_k.klt_pyramid_kernel(pyr1[:2], pyr2, kp, guess, valid, cfg)
+    with pytest.raises(ValueError, match="contiguous"):
+        klt_k.klt_pyramid_kernel((pyr1[0].t().contiguous().t(), *pyr1[1:]), pyr2, kp, guess, valid, cfg)
+    kp_c, ok_c = klt_k.klt_pyramid_kernel(pyr1, pyr2, kp[:0], guess[:0], valid[:0], cfg)
+    assert kp_c.shape == (0, 2) and ok_c.shape == (0,)
 
 
 def _pose_case(dev, n=512, seed=0):
@@ -240,3 +322,75 @@ def test_ba_step_card_matches_cpu(cuda, monkeypatch, linear_solver):
     kf_lm = wmap.kf_lm.cpu().numpy()
     ids = kf_lm[agree & (kf_lm >= 0)]
     np.testing.assert_array_equal(map_g.lm_obs.cpu().numpy()[ids], map_c.lm_obs.numpy()[ids])
+
+
+def test_loop_verify_card_matches_cpu(cuda):
+    """`LoopCloser._verify` (frame-mode K1 forward and backward, then the
+    plain pose rounds) on the card against the same closer on the CPU: a
+    revisit 0.4 m ahead and 2 degrees off.  The verdict equal, the inlier
+    count within 10%, the measured transform within 2e-2 m and 0.1 degrees
+    (KLT lanes at a gate threshold may fall either way)."""
+    from legoslam_tpu_torch.pipeline import loop_closure
+    from legoslam_tpu_torch.pipeline.dataset import SyntheticPlanesDataset
+
+    H, W, focal = 160, 240, 260.0
+    ds = SyntheticPlanesDataset(n_frames=2, shape=(H, W), focal=focal, baseline=0.54)
+    c, s = np.cos(np.deg2rad(2.0)), np.sin(np.deg2rad(2.0))
+    T_B = np.eye(4)
+    T_B[:3, :3] = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+    T_B[:3, 3] = [0.05, 0.0, 0.4]
+
+    def view(T_wc):
+        """Image, a 12-px grid of pixels and their exact world points."""
+        img, depth = ds._render_with_depth(T_wc, ds.rig.left)
+        us, vs = np.meshgrid(np.arange(20, W - 20, 12), np.arange(20, H - 20, 12))
+        uv = np.stack([us.ravel(), vs.ravel()], -1).astype(np.float64)
+        z = depth[uv[:, 1].astype(int), uv[:, 0].astype(int)]
+        ok = np.isfinite(z) & (z < 60)
+        uv, z = uv[ok], z[ok]
+        p_cam = np.stack([(uv[:, 0] - W / 2) / focal * z, (uv[:, 1] - H / 2) / focal * z, z], -1)
+        return img, uv, p_cam @ T_wc[:3, :3].T + T_wc[:3, 3]
+
+    closers = [loop_closure.LoopCloser(ds.rig, device=d) for d in ("cuda", "cpu")]
+    # the detector shut: add_keyframe only stores the records
+    for lc in closers:
+        lc.cfg.zncc_min = 1.1
+        for k, T_wc in enumerate((np.eye(4), T_B)):
+            img, uv, pw = view(T_wc)
+            assert lc.add_keyframe(k, img, np.linalg.inv(T_wc), uv, pw) is None
+    n0 = klt_k.klt_pyramid_kernel.launches
+    (ok_g, M_g, n_g), (ok_c, M_c, n_c) = (lc._verify(0) for lc in closers)
+    assert klt_k.klt_pyramid_kernel.launches == n0 + 4  # forward and reverse measurement, 2 launches each
+    assert ok_g and ok_c and n_g >= 50 and abs(n_g - n_c) <= 0.1 * n_c
+    assert np.linalg.norm(M_g[:3, 3] - M_c[:3, 3]) < 2e-2
+    ang = np.arccos(np.clip((np.trace(M_g[:3, :3].T @ M_c[:3, :3]) - 1) / 2, -1, 1))
+    assert ang < np.deg2rad(0.1)
+    M_true = np.linalg.inv(T_B)
+    assert np.linalg.norm(M_g[:3, 3] - M_true[:3, 3]) < 0.08
+
+
+@pytest.mark.parametrize("zero_rows", [(), (24, 25, 26, 27, 28, 29)])
+def test_marginalize_card_matches_cpu(cuda, zero_rows):
+    """`marginalize` on the card (eigh on cuSOLVER) against the CPU (LAPACK)
+    on a well-conditioned system: H, b and J^T J within 1e-4 of the largest
+    entry; `sqrt_J` itself is not unique."""
+    from legoslam_tpu_torch.solver import marginalization
+
+    rng = np.random.default_rng(0)
+    n = 30
+    Q, _ = np.linalg.qr(rng.normal(size=(n, n)))
+    keep = np.ones(n)
+    keep[list(zero_rows)] = 0.0
+    H = torch.from_numpy((((Q * rng.uniform(1.0, 40.0, n)) @ Q.T) * keep[:, None] * keep[None, :]).astype(np.float32))
+    b = torch.from_numpy((rng.normal(size=n) * keep).astype(np.float32))
+    mask = torch.zeros(n, dtype=torch.bool)
+    mask[12:18] = True
+    f_c = marginalization.marginalize(H, b, mask, 6)
+    f_g = marginalization.marginalize(H.to(cuda), b.to(cuda), mask.to(cuda), 6)
+    assert all(x.is_cuda for x in f_g)
+    scale = float(f_c.H.abs().max())
+    assert float((f_g.H.cpu() - f_c.H).abs().max()) <= 1e-4 * scale
+    assert float((f_g.b.cpu() - f_c.b).abs().max()) <= 1e-4 * float(f_c.b.abs().max())
+    assert float(((f_g.sqrt_J.T @ f_g.sqrt_J).cpu() - f_c.sqrt_J.T @ f_c.sqrt_J).abs().max()) <= 1e-4 * scale
+    jte_g, jte_c = (f_g.sqrt_J.T @ f_g.err).cpu(), f_c.sqrt_J.T @ f_c.err
+    assert float((jte_g - jte_c).abs().max()) <= 1e-3 * float(jte_c.abs().max())

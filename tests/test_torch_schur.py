@@ -159,5 +159,3 @@ def test_unknown_engine_raises(problem):
     graph, poses, points, port_graph = problem
     with pytest.raises(ValueError, match="lm_engine"):
         lm.solve_ba(port_graph, t(poses), t(points), engine="dense")
-    with pytest.raises(NotImplementedError, match="pose_prior"):
-        lm.solve_ba(port_graph, t(poses), t(points), pose_prior=(None, None, None))
