@@ -6,7 +6,8 @@
    nvidia-smi.  Exits non-zero without a CUDA device.
 2. Build: the CUDA kernels from legoslam_tpu_torch/csrc (nvcc, sm_90a),
    while a pool of processes renders the two worlds (each once; every
-   phase reuses the frames).
+   phase reuses the frames) and writes step 10's KITTI-format sequence to
+   a temporary directory (removed at the end).
 3. Kernels against their plain PyTorch versions at the main path's shapes:
    the anchored pyramid KLT (512 lanes, 3 levels of 188x620), the same
    kernel source in frame mode (consecutive frames, 512 lanes, 4 levels,
@@ -29,7 +30,10 @@
    track, every keyframe frame must carry a finite BA chi, the keyframe
    count must be within 1 of the JAX reference's, both kernels launched on
    every tracking frame, ATE < 0.05 m.  Prints ms/frame split into tracking
-   and keyframe frames, and keyframe frames into BA and the rest.
+   and keyframe frames, and keyframe frames into BA and the rest.  Then the
+   same slice again: the two trajectories must be bit-equal (window BA sums
+   in an order fixed by the graph), without
+   torch.use_deterministic_algorithms.
 6. Window BA at full width (K=16 window slots, L=2048 active landmarks,
    E=5120 edges, 512 feature lanes, 131,072 landmarks): the map of step 5
    just before its last keyframe's BA goes through `backend.ba_step` on the
@@ -50,17 +54,38 @@
    never LOST, a prior present at the end, and `marginalize` of the run's
    last window information on the card against a CPU copy.
 9. Loop closure at full width: a rounded-square course driven twice, with
-   the detector shut (open arm) and open (closed arm), under
-   torch.use_deterministic_algorithms(True) so that the arms are one run up
-   to the first closure: at least one closure, keyframe ATE and full ATE
+   the detector shut (open arm) and open (closed arm), which are one run up
+   to the first closure (the card's runs are reproducible): at least one
+   closure, keyframe ATE and full ATE
    lower closed than open, the frames the arms share bit for bit, the closer's stats, ms per verified candidate,
    frame-mode launches, and the host reads per registered keyframe.  The
    pyramids, features and mask of the closed arm's first accepted candidate
    are kept, and after the run the frame-mode kernel is held against its
    plain version on them, forward and backward, under the bars of step 3.
 
+10. KITTI through the command line, at full size: the first 150 frames of
+   the JAX package's 1,000-frame soak (376x1240 PNGs written with zlib,
+   calib.txt, poses.txt) through `python -m
+   legoslam_tpu_torch.apps.run_kitti --config_file config/kitti_00.yaml
+   --dataset_dir <seq> --out_dir <tmp>` in a subprocess: the user's
+   command, read at 188x620 by the port's loader, window 16, 512 lanes,
+   L=4096.  Exit 0, 150 poses, ATE and drift under the bars below (set
+   from the JAX reference's and the port's runs of the same frames on a
+   CPU).  Prints the decoder, the command's ms/frame, its ATE and RPE and
+   the BA slots it dropped.
+11. The same frames through the API (`VisualOdometry` with that config and
+   a `KittiDataset`): no frame LOST, the keyframe count within a tenth of
+   the reference's, window BA at L=4096 on every keyframe, the trajectory
+   file equal to the command line's byte for byte; ms/frame split into
+   tracking and keyframe frames, BA ms, dropped slots.  Then resume: 60
+   frames uninterrupted against 30, `save_checkpoint`, a fresh
+   `VisualOdometry`, `load_checkpoint` and 30 more: trajectories bit-equal,
+   frame ids equal, the dataset's index 30 after the load; prints the
+   checkpoint's size and its save and load ms.
+
 The kernel launch counts are set to 0 just before each slice and read just
-after it.  Prints one JSON line of per-kernel results, then, as the last
+after it (step 10's subprocess is counted through step 11's run of the same
+frames).  Prints one JSON line of per-kernel results, then, as the last
 line, {"ok": true, "device": {...}}.  Any failed check raises, so the script
 exits non-zero and prints no result line.
 """
@@ -76,6 +101,8 @@ import time
 import warnings
 import multiprocessing
 import os
+import shutil
+import tempfile
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
@@ -98,8 +125,9 @@ ATE_MAX = 0.05            # m, the JAX reference gets 0.0047 m on these frames (
 # frame TRACKING_GOOD, ATE 0.019379 m.
 REF_INLINE_KEYFRAMES = 8
 REF_INLINE_ATE = 0.019379
-# Window BA, card against CPU on the same map (same port code; the sums of
-# `index_add_` run in another order on the card): final chi relative, poses
+# Window BA, card against CPU on the same map (same port code; the card sums
+# the blocks through padded tables, the CPU by `index_add_`, in another
+# association of the same edge order): final chi relative, poses
 # relative to the oldest keyframe (every window pose is free, so the
 # window's rigid placement is held only by the LM damping), verdict masks.
 BA_CHI_RTOL = 1e-3
@@ -148,18 +176,43 @@ MARG_RTOL = 1e-3
 # The two arms are the same code on the same frames, and the comparison
 # means something only if they are the same run up to the first closure, as
 # they are in the reference, which is deterministic.  The port on a card is
-# not, left to itself: `index_add_` sums duplicate indices in no fixed order
-# (solver/schur.py), and over a lap that rounding decides the drift.  Two
-# runs with the detector shut on these very frames ended 0.191 and 0.476 m
-# off (full ATE, NVIDIA H100 80GB HBM3), more than a closure gains, so
-# arms drawn apart could and did come out in the wrong order (1 call of 10).
-# This phase therefore runs under torch.use_deterministic_algorithms(True):
-# the arms are then bit-equal up to the first closure (printed), and so are
-# two calls (3 runs of each arm in one call of
-# `scripts/loop_course_scan.py --deterministic --repeat 3 lap2`: one
-# trajectory digest per arm; keyframe ATE 0.4172 -> 0.2307 m, full ATE
-# 0.4165 -> 0.3171 m).
+# too since window BA sums in an order fixed by the graph
+# (solver/schur.py): 3 runs of each arm in one call of
+# `scripts/loop_course_scan.py --repeat 3 lap2`, with and without
+# --deterministic, gave one trajectory digest per arm (open d6150d6467c5,
+# closed f3b4c742ae79), 224 leading frames shared, 13 closures, keyframe ATE
+# 0.2540 -> 0.0440 m, full ATE 0.2515 -> 0.1150 m.  (With `index_add_`'s
+# unordered sums two runs with the detector shut ended 0.191 and 0.476 m
+# off, more than a closure gains, and this phase ran under
+# torch.use_deterministic_algorithms(True); it needs that no longer.)
 LAP_SIDE, LAP_TURN, LAP_SPEED, LAP_LAPS, LAP_TAIL = 32, 24, 0.3, 2, 4
+
+# Step 10's sequence: the first KITTI_FRAMES frames of the JAX package's
+# 1,000-frame soak (tests/test_kitti_soak.py:25-80): 376x1240 written to disk
+# as KITTI lays a sequence out, focal 720, baseline 0.54 m, the S-curve at
+# 0.3 m/frame, a corridor of half width 12 m from z -20, 6 occluders,
+# photometric noise 1.5; read at half resolution (188x620) by the port's CLI.
+SOAK_SHAPE, SOAK_FOCAL, SOAK_BASELINE, SOAK_FRAMES, SOAK_SPEED = (376, 1240), 720.0, 0.54, 1000, 0.3
+SOAK_HALF_WIDTH = 12.0
+KITTI_FRAMES = 150
+RESUME_FRAMES, RESUME_AT = 60, 30   # step 11: 60 frames, stopped and resumed after 30
+# The JAX reference's run of those 150 frames through its own command line
+# on a CPU (`JAX_PLATFORMS=cpu python apps/run_kitti.py --config_file
+# config/kitti_00.yaml --dataset_dir <seq> --log_every 1`, with
+# `ba_assembly_precision: f32` added to the config as step 5's reference
+# has it): 30 keyframes, every frame TRACKING_GOOD, ATE 0.029166 m, drift
+# 0.4453 m per 100 m (the last frame's error over the 44.7 m path).  With
+# the config as it is (bf16 assembly): 30 keyframes, ATE 0.020757 m, drift
+# 0.0870.  The port's command line on a CPU (`--device cpu`): 30 keyframes,
+# ATE 0.034178 m, drift 0.2541, 0.0325 m from the f32 reference after a
+# rigid alignment.  The bars are twice the largest of the three; the
+# keyframe count may move by a tenth.
+REF_KITTI_KEYFRAMES = 30
+REF_KITTI_ATE = 0.029166
+REF_KITTI_DRIFT = 0.4453
+KITTI_KEYFRAME_TOL = 3
+KITTI_ATE_MAX = 0.07
+KITTI_DRIFT_MAX = 0.9
 
 # Roofline of one H100 SXM (NVIDIA's data sheet; at a 700 W power limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -300,6 +353,67 @@ def lap_world(laps=LAP_LAPS, tail=LAP_TAIL):
 
 
 LAP = ("lap", LAP_LAPS, LAP_TAIL)
+
+
+def soak_trajectory(n=SOAK_FRAMES, speed=SOAK_SPEED):
+    """T_wc of the soak's S-curve (tests/test_kitti_soak.py's
+    `_s_curve_trajectory`): forward at `speed` m/frame with a gentle
+    alternating yaw."""
+    k = np.arange(n)
+    dyaw = 0.0018 * np.sin(2 * np.pi * k / 320.0)
+    poses, pos, yaw = [], np.zeros(3), 0.0
+    for dy in dyaw:
+        c, s = np.cos(yaw), np.sin(yaw)
+        T = np.eye(4)
+        T[:3, :3] = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+        T[:3, 3] = pos
+        poses.append(T)
+        pos = pos + T[:3, :3] @ np.array([0.0, 0.0, speed])
+        yaw += dy
+    return np.stack(poses)
+
+
+def soak_world(n=SOAK_FRAMES):
+    """The soak's world (tests/test_kitti_soak.py's `_make_dataset`), its
+    first `n` frames: frame i renders to the same bytes for any n."""
+    from legoslam_tpu_torch.pipeline.dataset import SyntheticPlanesDataset
+
+    return SyntheticPlanesDataset(shape=SOAK_SHAPE, focal=SOAK_FOCAL, baseline=SOAK_BASELINE, half_width=SOAK_HALF_WIDTH,
+                                  length=SOAK_FRAMES * SOAK_SPEED + 60.0, z_min=-20.0,
+                                  trajectory=soak_trajectory()[:n], n_occluders=6, photometric_noise=1.5)
+
+
+def write_soak_chunk(root, indices):
+    """Render frames `indices` of the soak world and write them as KITTI
+    PNGs under `root` (runs in a worker process)."""
+    from legoslam_tpu_torch.pipeline.dataset import write_kitti_frame
+
+    ds = soak_world(max(indices) + 1)
+    for i in indices:
+        ds.current_index = i
+        fr = ds.next_frame()
+        write_kitti_frame(root, i, fr.left, fr.right)
+    return len(indices)
+
+
+def start_soak_sequence(pool, workers: int, root: str, n: int):
+    """Write calib.txt and poses.txt of the soak's first `n` frames under
+    `root` and submit its frames to the pool; returns a function that waits
+    for them."""
+    from legoslam_tpu_torch.pipeline.dataset import write_kitti_sequence
+
+    H, W = SOAK_SHAPE
+    P0 = np.array([[SOAK_FOCAL, 0.0, W / 2.0, 0.0], [0.0, SOAK_FOCAL, H / 2.0, 0.0], [0.0, 0.0, 1.0, 0.0]])
+    P1 = P0.copy()
+    P1[0, 3] = -SOAK_FOCAL * SOAK_BASELINE
+    write_kitti_sequence(root, P0, P1, soak_trajectory()[:n])
+    futs = [pool.submit(write_soak_chunk, root, list(range(w, n, workers))) for w in range(workers)]
+
+    def gather():
+        if sum(f.result() for f in futs) != n:
+            raise RuntimeError("the soak sequence was not written whole")
+
+    return gather
 
 
 def world(kind):
@@ -499,7 +613,6 @@ class FrameList:
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")  # cuBLAS's condition for reproducible products (step 9)
     dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -522,16 +635,29 @@ def main() -> None:
     # card) while nvcc runs; the pool is closed before the first check.
     t0 = time.perf_counter()
     workers = max(1, min(8, os.cpu_count() or 1))
-    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as procs:
-        gather = render_worlds(procs, workers)
-        with ThreadPoolExecutor() as pool:
-            for line in pool.map(build, ("klt_anchored", "pose")):
-                print(line, flush=True)
-        worlds = gather()
-    frames, lap_frames = worlds["bench"], worlds[LAP]
+    scratch = tempfile.mkdtemp(prefix="legoslam_chip_smoke_")
+    try:
+        kitti_root = os.path.join(scratch, "07")
+        with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as procs:
+            gather = render_worlds(procs, workers)
+            gather_kitti = start_soak_sequence(procs, workers, kitti_root, KITTI_FRAMES)
+            with ThreadPoolExecutor() as pool:
+                for line in pool.map(build, ("klt_anchored", "pose")):
+                    print(line, flush=True)
+            worlds = gather()
+            gather_kitti()
+        frames, lap_frames = worlds["bench"], worlds[LAP]
+        print(f"rendered {N_FRAMES} + {len(lap_frames)} frames of {SHAPE[0]}x{SHAPE[1]} and wrote {KITTI_FRAMES} "
+              f"KITTI-format frames of {SOAK_SHAPE[0]}x{SOAK_SHAPE[1]} in {workers} processes, "
+              f"{time.perf_counter() - t0:.1f} s with the build", flush=True)
+        run_slices(dev, kind, smi, klt_k, pose_k, frames, lap_frames, kitti_root, scratch)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+
+
+def run_slices(dev, kind, smi, klt_k, pose_k, frames, lap_frames, kitti_root, scratch) -> None:
+    """Steps 3 to 11, then the result lines."""
     ds = bench_world(N_FRAMES)
-    print(f"rendered {N_FRAMES} + {len(lap_frames)} frames of {SHAPE[0]}x{SHAPE[1]} in {workers} processes, "
-          f"{time.perf_counter() - t0:.1f} s with the build", flush=True)
 
     # --- 3. kernels against plain versions ---------------------------------
 
@@ -717,6 +843,21 @@ def main() -> None:
     check(bool(np.isfinite(T_wc).all()), "non-finite trajectory (BA inline)")
     check(ate_inline < ATE_MAX, f"ATE {ate_inline:.4f} m (BA inline)")
 
+    # The same slice again: the card must give the same bits, without
+    # torch.use_deterministic_algorithms (BA sums in a fixed order).
+    check(not torch.are_deterministic_algorithms_enabled(), "deterministic algorithms are on")
+    vo = VisualOdometry(config=config, dataset=FrameList(frames, ds.rig))
+    check(vo.init(), "VisualOdometry.init failed (BA inline, second run)")
+    reset_counts()
+    while vo.step():
+        pass
+    launches_inline2 = read_counts()
+    digests = [hashlib.sha1(np.ascontiguousarray(T).tobytes()).hexdigest()[:12]
+               for T in (T_wc, vo.trajectory_T_wc())]
+    print(f"slice inline, run twice: trajectory sha1 {digests[0]} and {digests[1]}, bit-equal "
+          f"{digests[0] == digests[1]}, launches {launches_inline2}", flush=True)
+    check(digests[0] == digests[1], "two runs of the default path gave two trajectories")
+
     # --- 6. window BA at full width, card against CPU -----------------------
     cfg_b, rig_b, wmap_b, ba_cfg_b = ba_calls[-1][1]
     check(cfg_b.caps == Capacities(), f"BA capacities {cfg_b.caps} are not the defaults")
@@ -865,7 +1006,6 @@ def main() -> None:
     lap = lap_world()
     traj = lap.gt_T_wc
     arms = {}
-    torch.use_deterministic_algorithms(True, warn_only=True)  # see LAP_SIDE: the arms must be one run until a loop closes
     for zncc in (1.1, 0.5):
         vo = VisualOdometry(config=config.override(use_loop_closure=True, loop_zncc_min=zncc),
                             dataset=FrameList(lap_frames, lap.rig))
@@ -920,7 +1060,6 @@ def main() -> None:
             "klt_cfg": lc.cfg.klt, "est": est,
             "first_closure": lc.records[lc.loop_edges[0][0]].frame_id if lc.loop_edges else None,
         }
-    torch.use_deterministic_algorithms(False)
     for name, zncc in (("open", 1.1), ("closed", 0.5)):
         a = arms[zncc]
         print(f"loop {name} (loop_zncc_min {zncc}): {len(traj)} frames (side {LAP_SIDE}, turn {LAP_TURN}, speed "
@@ -956,11 +1095,14 @@ def main() -> None:
     err_loop = hold_klt_frame(klt_k, "K1 frame on the closed arm's first accepted candidate", pyr_j, pyr_i, uv_j,
                               valid_j, closed["klt_cfg"], min_tracked=loop_closure.LoopConfig().min_inliers)[0]
 
+    launches_kitti = run_kitti_steps(kind, smi, kitti_root, scratch, reset_counts, read_counts)
+
     # library_ms: no single PyTorch call computes any of the three functions.
-    slices = (launches_off, launches_inline, launches_modes, launches_marg, arms[1.1]["launches"], closed["launches"])
+    slices = (launches_off, launches_inline, launches_inline2, launches_modes, launches_marg, arms[1.1]["launches"],
+              closed["launches"], launches_kitti)
     launches = {k: sum(sl[k] for sl in slices) for k in launches_off}
     check(all(n > 0 for n in launches.values()), f"a kernel was never launched on the main paths: {launches}")
-    n_frames_all = 4 * N_FRAMES + 2 * len(traj)
+    n_frames_all = 5 * N_FRAMES + 2 * len(traj) + KITTI_FRAMES
     results[1]["max_abs_err"] = max(results[1]["max_abs_err"], err_loop)  # klt_pyramid_frame
     kernels = [{"name": r["name"], "route": r["route"], "source": r["source"], "replaces": r["replaces"],
                 "launches": launches[r["name"]], "launches_per_frame": launches[r["name"]] / n_frames_all,
@@ -970,6 +1112,165 @@ def main() -> None:
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))
+
+
+def kitti_errors(T_wc, gt):
+    """(ATE rigidly aligned, drift in m per 100 m as the JAX soak measures it:
+    the last frame's error over the path length, evaluation.drift_rate)."""
+    from legoslam_tpu_torch.utils import evaluation
+
+    pos, gt_pos = T_wc[:, :3, 3], gt[: len(T_wc), :3, 3]
+    path = np.linalg.norm(np.diff(gt_pos, axis=0), axis=1).sum()
+    return (evaluation.ate_rmse(pos, gt_pos), 100.0 * np.linalg.norm(pos[-1] - gt_pos[-1]) / path,
+            evaluation.drift_rate(T_wc, gt[: len(T_wc)]))
+
+
+def run_kitti_steps(kind, smi, kitti_root, scratch, reset_counts, read_counts):
+    """Steps 10 and 11; returns the kernel launches of step 11's API run."""
+    import re
+
+    from legoslam_tpu_torch.pipeline import backend
+    from legoslam_tpu_torch.pipeline.dataset import KittiDataset
+    from legoslam_tpu_torch.pipeline.visual_odometry import FrontendStatus, VisualOdometry
+    from legoslam_tpu_torch.utils import evaluation
+    from legoslam_tpu_torch.utils.config import Config
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    config_file = os.path.join(repo, "config", "kitti_00.yaml")
+
+    # --- 10. KITTI through the command line, at full size ----------------------
+    out_dir = os.path.join(scratch, "out")
+    cmd = [sys.executable, "-m", "legoslam_tpu_torch.apps.run_kitti", "--config_file", config_file,
+           "--dataset_dir", kitti_root, "--out_dir", out_dir]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900, cwd=repo)
+    cli_s = time.perf_counter() - t0
+    log = proc.stderr
+    check(proc.returncode == 0, f"the KITTI command line exited {proc.returncode}: {log[-3000:]}")
+    traj_path = os.path.join(out_dir, "trajectory_kitti.txt")
+    T_cli = np.stack(evaluation.load_kitti_trajectory(traj_path))
+    decoder = re.search(r"decoder (\w+)", log)
+    timing = re.search(r"processed (\d+) frames, \d+ active keyframes, ([\d.]+) ms \(([\d.]+) ms/frame\)", log)
+    ate_line = re.search(r"ATE RMSE: ([\d.]+) m \| RPE: ([\d.]+) m / ([\d.]+) deg", log)
+    dropped = re.search(r"BA dropped (\d+)", log)
+    gt = KittiDataset(kitti_root, use_native=False)
+    check(gt.init() and gt.ground_truth is not None, "the KITTI sequence has no ground truth")
+    gt = gt.ground_truth
+    ate, drift, drift_seg = kitti_errors(T_cli, gt)
+    print(f"kitti cli: `python -m legoslam_tpu_torch.apps.run_kitti --config_file config/kitti_00.yaml "
+          f"--dataset_dir <seq> --out_dir <tmp>` on the soak's first {KITTI_FRAMES} frames "
+          f"({SOAK_SHAPE[0]}x{SOAK_SHAPE[1]} PNGs, read at {SOAK_SHAPE[0] // 2}x{SOAK_SHAPE[1] // 2}): exit "
+          f"{proc.returncode}, {cli_s:.1f} s in all, decoder {decoder and decoder.group(1)}, "
+          f"{len(T_cli)} poses", flush=True)
+    print(f"kitti cli: {timing and timing.group(2)} ms for {timing and timing.group(1)} frames "
+          f"({timing and timing.group(3)} ms/frame, host clock, the first frames' warm-up included); its log: "
+          f"ATE {ate_line and ate_line.group(1)} m, RPE {ate_line and ate_line.group(2)} m / "
+          f"{ate_line and ate_line.group(3)} deg per frame; BA slots dropped {dropped.group(1) if dropped else 0}",
+          flush=True)
+    print(f"kitti cli: ATE {ate:.5f} m (bar {KITTI_ATE_MAX}; JAX reference {REF_KITTI_ATE} m), drift {drift:.4f} m "
+          f"per 100 m (bar {KITTI_DRIFT_MAX}; JAX reference {REF_KITTI_DRIFT}), drift_rate {drift_seg:.4f} on {kind} "
+          f"({smi})", flush=True)
+    check(decoder is not None and timing is not None and ate_line is not None, "the command line's log is incomplete")
+    check(len(T_cli) == KITTI_FRAMES and int(timing.group(1)) == KITTI_FRAMES,
+          f"{len(T_cli)} poses for {KITTI_FRAMES} frames")
+    check(bool(np.isfinite(T_cli).all()) and ate < KITTI_ATE_MAX, f"ATE {ate:.4f} m (KITTI command line)")
+    check(drift < KITTI_DRIFT_MAX, f"drift {drift:.4f} m per 100 m (KITTI command line)")
+
+    # --- 11. the same frames through the API, then resume ----------------------
+    config = Config.from_yaml(config_file)
+    check(config["max_active_landmarks"] == 4096, "config/kitti_00.yaml's BA width is not 4096")
+
+    def kitti_vo():
+        vo = VisualOdometry(config=config, dataset=KittiDataset(kitti_root, scale=config["image_scale"]))
+        check(vo.device.type == "cuda", f"VisualOdometry runs on {vo.device} (KITTI)")
+        check(vo.init(), "VisualOdometry.init failed (KITTI)")
+        return vo
+
+    ba_step, ba_calls = backend.ba_step, []
+
+    def timed_ba_step(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ba_step(*args)
+        torch.cuda.synchronize()
+        ba_calls.append((1e3 * (time.perf_counter() - t0), args[0].caps.active_landmarks))
+        return out
+
+    vo = kitti_vo()
+    backend.ba_step = timed_ba_step
+    try:
+        reset_counts()
+        frame_ms = []
+        while True:
+            t0 = time.perf_counter()
+            more = vo.step()
+            torch.cuda.synchronize()
+            if not more:
+                break
+            frame_ms.append(1e3 * (time.perf_counter() - t0))
+        launches = read_counts()
+    finally:
+        backend.ba_step = ba_step
+    statuses, kf = vo.statuses(), vo.keyframe_flags()
+    n_kf = int(kf.sum())
+    T_api = vo.trajectory_T_wc()
+    dropped_api = int(torch.stack([o.ba.n_dropped_landmarks for o in vo.outputs]).sum())
+    evaluation.save_kitti_trajectory(os.path.join(scratch, "api.txt"), T_api)
+    with open(traj_path) as a, open(os.path.join(scratch, "api.txt")) as b:
+        same_text = a.read() == b.read()
+    track = [frame_ms[i] for i in range(WARMUP, len(frame_ms)) if not kf[i]]
+    kfs = [frame_ms[i] for i in range(WARMUP, len(frame_ms)) if kf[i]]
+    ba_ms = [c[0] for c in ba_calls[1:]]
+    ate_api, drift_api, _ = kitti_errors(T_api, gt)
+    print(f"kitti api: {len(statuses)} frames, keyframes {n_kf} (JAX reference {REF_KITTI_KEYFRAMES}), lost "
+          f"{int((statuses == FrontendStatus.LOST).sum())}, statuses other than TRACKING_GOOD "
+          f"{int((statuses != FrontendStatus.TRACKING_GOOD).sum())}, launches {launches}; its trajectory file equals "
+          f"the command line's: {same_text}; ATE {ate_api:.5f} m, drift {drift_api:.4f} m per 100 m", flush=True)
+    print(f"kitti api: {np.mean(frame_ms[WARMUP:]):.3f} ms/frame over frames {WARMUP}..{len(frame_ms) - 1} (each "
+          f"ends in a synchronize); tracking frames n={len(track)} median {np.median(track):.3f} ms; keyframe "
+          f"frames n={len(kfs)} median {np.median(kfs):.3f} ms; window BA at L={ba_calls[-1][1]} median "
+          f"{np.median(ba_ms):.3f} ms (n={len(ba_ms)}, the first call apart), max {np.max(ba_ms):.3f} ms; BA "
+          f"slots dropped {dropped_api} on {kind} ({smi})", flush=True)
+    check(not (statuses == FrontendStatus.LOST).any(), "a KITTI frame was LOST")
+    check(all(c[1] == 4096 for c in ba_calls) and len(ba_calls) == n_kf, "window BA did not run at L=4096")
+    check(abs(n_kf - REF_KITTI_KEYFRAMES) <= KITTI_KEYFRAME_TOL,
+          f"{n_kf} keyframes, JAX reference {REF_KITTI_KEYFRAMES}")
+    check(same_text, "the API run and the command line gave two trajectories")
+    check(all(launches[k] >= len(statuses) - 1 for k in MAIN_KERNELS),
+          "a kernel was not launched on every tracking frame (KITTI)")
+
+    full = kitti_vo()
+    for _ in range(RESUME_FRAMES):
+        check(full.step(), "the KITTI sequence ended early")
+    first = kitti_vo()
+    for _ in range(RESUME_AT):
+        check(first.step(), "the KITTI sequence ended early")
+    ckpt = os.path.join(scratch, "resume.npz")
+    t0 = time.perf_counter()
+    ckpt = first.save_checkpoint(ckpt)
+    save_ms = 1e3 * (time.perf_counter() - t0)
+    resumed = kitti_vo()
+    t0 = time.perf_counter()
+    resumed.load_checkpoint(ckpt)
+    torch.cuda.synchronize()
+    load_ms = 1e3 * (time.perf_counter() - t0)
+    at = resumed.dataset.current_index
+    for _ in range(RESUME_FRAMES - RESUME_AT):
+        check(resumed.step(), "the KITTI sequence ended early after the resume")
+    T_full, T_res = full.trajectory_T_cw(), resumed.trajectory_T_cw()
+    equal = T_full.shape == T_res.shape and bool((T_full == T_res).all())
+    same_prefix = bool((T_full == vo.trajectory_T_cw()[:RESUME_FRAMES]).all())
+    print(f"resume: {RESUME_FRAMES} frames uninterrupted against {RESUME_AT} + checkpoint + {RESUME_FRAMES - RESUME_AT} "
+          f"in a fresh VisualOdometry: trajectories bit-equal {equal}, frame ids equal "
+          f"{resumed.frame_ids == full.frame_ids}, dataset index {at} after the load and "
+          f"{resumed.dataset.current_index} at the end; the uninterrupted run equals the first {RESUME_FRAMES} "
+          f"frames of step 11's: {same_prefix}; checkpoint {os.path.getsize(ckpt)} bytes, saved in {save_ms:.1f} ms, "
+          f"loaded in {load_ms:.1f} ms (host clock) on {kind} ({smi})", flush=True)
+    check(at == RESUME_AT and resumed.dataset.current_index == RESUME_FRAMES, "the dataset did not seek")
+    check(resumed.frame_ids == full.frame_ids == list(range(RESUME_FRAMES)), "frame ids differ after the resume")
+    check(equal, "the resumed run differs from the uninterrupted one")
+    check(same_prefix, "two API runs of the KITTI sequence differ")
+    return launches
 
 
 if __name__ == "__main__":

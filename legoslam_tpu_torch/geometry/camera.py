@@ -97,3 +97,19 @@ class StereoRig:
 
     def to(self, device) -> "StereoRig":
         return StereoRig(self.left.to(device), self.right.to(device))
+
+    @staticmethod
+    def from_kitti_projections(P0, P1, scale=1.0, dtype=torch.float32, device="cpu") -> "StereoRig":
+        """A rig from two KITTI 3x4 projection matrices, as Dataset::Init
+        (dataset.cpp:13-51) builds it: t = K^-1 P[:, 3], intrinsics scaled by
+        `scale`, baseline = ||t||, extrinsic the pure translation t."""
+        cams = []
+        for P in (np.asarray(P0, np.float64), np.asarray(P1, np.float64)):
+            K = P[:, :3]
+            t = np.linalg.solve(K, P[:, 3])
+            Ks = K * scale
+            pose = np.eye(4)
+            pose[:3, 3] = t
+            cams.append(Camera.create(Ks[0, 0], Ks[1, 1], Ks[0, 2], Ks[1, 2], baseline=float(np.linalg.norm(t)),
+                                      pose=pose, dtype=dtype, device=device))
+        return StereoRig(left=cams[0], right=cams[1])

@@ -168,3 +168,26 @@ def retract(T: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     finite = torch.all(torch.isfinite(delta), dim=-1)
     delta = torch.where(finite[..., None], delta, torch.zeros_like(delta))
     return se3_orthonormalize(se3_exp(delta) @ T)
+
+
+def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices ``(..., 3, 3)`` -> unit quaternions ``(..., 4)`` (x, y, z, w).
+
+    Shepperd-style selection of the numerically largest component, used for
+    TUM-format trajectory export."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22, 1.0 + m11 - m00 - m22, 1.0 + m22 - m00 - m11], dim=-1)
+    qw = torch.sqrt(torch.clamp(qw, min=1e-12)) * 0.5
+    w0, x1, y2, z3 = qw.unbind(-1)
+    cand = torch.stack([
+        torch.stack([(m21 - m12) / (4 * w0), (m02 - m20) / (4 * w0), (m10 - m01) / (4 * w0), w0], dim=-1),
+        torch.stack([x1, (m01 + m10) / (4 * x1), (m02 + m20) / (4 * x1), (m21 - m12) / (4 * x1)], dim=-1),
+        torch.stack([(m01 + m10) / (4 * y2), y2, (m12 + m21) / (4 * y2), (m02 - m20) / (4 * y2)], dim=-1),
+        torch.stack([(m02 + m20) / (4 * z3), (m12 + m21) / (4 * z3), z3, (m10 - m01) / (4 * z3)], dim=-1),
+    ], dim=-2)
+    pivot = torch.argmax(torch.stack([tr, m00, m11, m22], dim=-1), dim=-1)
+    q = torch.take_along_dim(cand, pivot[..., None, None].expand(*pivot.shape, 1, 4), dim=-2)[..., 0, :]
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)

@@ -184,9 +184,15 @@ def solve_window(cfg: FrontendConfig, rig: StereoRig, wmap: WorldMap, ba_cfg: BA
         T_lin = torch.where(slot_ok[:, None, None], mg.prior_T, wmap.kf_pose)
         pose_prior = (mg.prior_J * m6[None, :] * w, mg.prior_err * w, T_lin)
 
+    # The sums' fixed order on a card, without a host read: a keyframe's
+    # feature table holds each landmark at most once, so a window slot has at
+    # most 2 NF edges, a landmark 2 KW, and a (slot, landmark) pair one per
+    # camera.
+    KW, NF = cfg.caps.window, cfg.caps.max_features
+    order = schur.order_for(problem.graph, KW, problem.points.shape[0], widths=(2 * NF, 2 * KW, 2))
     state, res = lm_ops.solve_ba(problem.graph, problem.poses, problem.points, kernel=robust.HUBER,
                                  delta=ba_cfg.chi2_threshold, cfg=lm_cfg, engine=ba_cfg.engine,
-                                 pose_prior=pose_prior)
+                                 pose_prior=pose_prior, order=order)
 
     # Outlier classification at the optimum (robust chi2 per edge, raw points).
     chis = schur.edge_chi2(problem.graph, state.poses, state.points, robust.HUBER, ba_cfg.chi2_threshold)
@@ -196,7 +202,6 @@ def solve_window(cfg: FrontendConfig, rig: StereoRig, wmap: WorldMap, ba_cfg: BA
     n_out = outlier_edge.sum(dtype=torch.int32)
 
     # Verdicts back onto the (2, KW, NF) grid through e_src (unique indices).
-    KW, NF = cfg.caps.window, cfg.caps.max_features
     out_grid = torch.zeros((2 * KW * NF,), dtype=torch.bool, device=chis.device)
     out_grid[problem.e_src] = outlier_edge
     stats = BAStats(
@@ -211,7 +216,8 @@ def solve_window(cfg: FrontendConfig, rig: StereoRig, wmap: WorldMap, ba_cfg: BA
     # so information accumulates across evictions.
     info = None
     if pose_prior is not None:
-        blocks_f = schur.build_blocks(problem.graph, state.poses, state.points, robust.HUBER, ba_cfg.chi2_threshold)
+        blocks_f = schur.build_blocks(problem.graph, state.poses, state.points, robust.HUBER, ba_cfg.chi2_threshold,
+                                      order=order)
         S_f, b_f, _ = schur.schur_reduce(blocks_f, problem.graph.point_valid, 0.0, "default")
         prior_J, prior_err, T_lin = pose_prior
         r_p = prior_err + prior_J @ se3.se3_log(state.poses @ se3.se3_inv(T_lin)).reshape(-1)

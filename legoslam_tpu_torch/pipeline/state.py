@@ -6,7 +6,8 @@ dataclasses of tensors with the reference's field names, shapes and dtypes;
 `MargState` is the marginalization prior's bookkeeping inside `WorldMap`.  The `*_from_numpy` converters take dicts of NumPy
 arrays keyed by the reference's field names (nested for `wmap`, `feats` and
 `marg`) and return port state on a given device: this is how reference
-state reaches the port in the parity tests.
+state reaches the port in the parity tests; `carry_to_numpy` is their
+inverse, which checkpoints write (utils/checkpoint.py).
 """
 
 from __future__ import annotations
@@ -218,6 +219,33 @@ def carry_from_numpy(d: Mapping[str, Any], device="cpu") -> VOCarry:
         pyr_last=tuple(_tensor(p, device) for p in d["pyr_last"]),
         frames_since_kf=int(np.asarray(d["frames_since_kf"])),
     )
+
+
+def _numpy(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def carry_to_numpy(carry: VOCarry) -> dict:
+    """The inverse of `carry_from_numpy`: the carry as nested dicts of NumPy
+    arrays in the reference's field order (which is also its `tree_flatten`
+    order), the host ints as int32 scalars as the reference stores them.
+    This is the state a whole run carries across a checkpoint."""
+
+    def fields(obj):
+        return {f.name: (fields(getattr(obj, f.name)) if dataclasses.is_dataclass(getattr(obj, f.name))
+                         else _numpy(getattr(obj, f.name))) for f in dataclasses.fields(obj)}
+
+    return {
+        "status": np.asarray(carry.status, np.int32),
+        "feats": fields(carry.feats),
+        "wmap": fields(carry.wmap),
+        "T_cur": _numpy(carry.T_cur),
+        "rel_motion": _numpy(carry.rel_motion),
+        "pyr_last": tuple(_numpy(p) for p in carry.pyr_last),
+        "frames_since_kf": np.asarray(carry.frames_since_kf, np.int32),
+    }
 
 
 def rig_from_numpy(d: Mapping[str, Any], device="cpu") -> StereoRig:

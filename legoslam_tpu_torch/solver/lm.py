@@ -157,11 +157,14 @@ def solve_ba(
     cfg: LMConfig = LMConfig(),
     engine: str = "soa",
     pose_prior=None,
+    order: schur.BAOrder = None,
 ) -> Tuple[BAState, LMResult]:
     """Sliding-window BA, `Backend::Optimize`'s `problem.solve(10)`
     (backend_lego.cpp:161) over the active window, on the one engine of
     solver/schur.py ("soa" and "blocks" both select it).  Each attempt is
-    one fused edge sweep: the candidate's chi and its assembly together.
+    one fused edge sweep: the candidate's chi and its assembly together,
+    summed in the graph's fixed order: `order`, or on a card
+    `schur.build_order`'s tables made once for the solve with one host read.
 
     pose_prior: optional (sqrt_J (6K, 6K), err0 (6K,), T_lin (K, 4, 4)), a
     linearized marginalization prior on the poses (problem.cpp:338-355) with
@@ -175,8 +178,11 @@ def solve_ba(
         prior_H = prior_J.T @ prior_J
         T_lin_inv = se3.se3_inv(prior_T)
 
+    if order is None:
+        order = schur.order_for(graph, poses.shape[0], points.shape[0])
+
     def chi_build(st: BAState):
-        blocks, chi = schur.build_blocks(graph, st.poses, st.points, kernel, delta, with_chi=True)
+        blocks, chi = schur.build_blocks(graph, st.poses, st.points, kernel, delta, with_chi=True, order=order)
         bprior = None
         if pose_prior is not None:
             # dx is the manifold offset from the linearization poses, in

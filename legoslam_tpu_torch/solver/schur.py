@@ -6,7 +6,7 @@ the block pipeline of `schur.py` and the component-major `edge_soa.py`,
 whose layout exists only for the TPU's registers and matrix unit (one-hot
 contractions in place of gathers and segment sums, edge_soa.py:7-18).  Here
 there is one engine: gathers per edge, the reference's default (`edge_soa`)
-edge math, and `index_add_` over the pose and landmark indices.  Config
+edge math, and segment sums over the pose and landmark indices.  Config
 `lm_engine` "soa" and "blocks" both select it (`check_engine`); any other
 value raises ValueError.  There is no bfloat16 assembly: the blocks are
 assembled in float32, as the reference's `ba_assembly_precision: f32` does.
@@ -20,8 +20,13 @@ Shapes: K poses (6 DoF), L landmarks (3 DoF), E edges, each joining one
 pose and one landmark through one of C camera extrinsics.  The cross blocks
 stay dense at (K, L, 6, 3): 2.4 MB at K=16, L=2048.
 
-`index_add_` on a CUDA tensor sums duplicate indices in no fixed order, so
-the blocks may differ from run to run at float rounding level.
+Each destination block sums its edges in an order fixed by the graph.
+`index_add_` on a CPU tensor adds them one by one in edge order; on a CUDA
+tensor it adds duplicate indices in no fixed order, and the window's free
+gauge amplifies that rounding into trajectories that differ from run to
+run.  So on a card (or wherever `BAOrder` tables are given) each block
+gathers its edges, in edge order, into one padded row and sums the row: the
+same bits on every run.
 """
 
 from __future__ import annotations
@@ -62,6 +67,16 @@ class BABlocks(NamedTuple):
     Hpl: torch.Tensor   # (K, L, 6, 3) cross blocks
     bp: torch.Tensor    # (K, 6)
     bl: torch.Tensor    # (L, 3)
+
+
+class BAOrder(NamedTuple):
+    """Padded edge tables of one graph: row d lists, in edge order, the edges
+    whose destination is d, padded with E (the index of an all-zero row
+    appended to the per-edge terms).  Built once per graph (`build_order`)."""
+
+    pose: torch.Tensor   # (K, Wp) edges per pose
+    point: torch.Tensor  # (L, Wl) edges per landmark
+    pair: torch.Tensor   # (K * L, Wc) edges per (pose, landmark) cross block
 
 
 def check_engine(engine: str) -> None:
@@ -113,11 +128,61 @@ def robust_chi(graph: BAGraph, poses: torch.Tensor, points: torch.Tensor, kernel
     return 0.5 * torch.where(edge_mask(graph), chi, 0.0).sum()
 
 
+def _segment_table(dest: torch.Tensor, keep: torch.Tensor, D: int, width: int) -> torch.Tensor:
+    """(D, width) int64: row d holds the kept edges with dest == d in edge
+    order, then E.  A stable sort by destination ranks each edge within its
+    row; every write lands on its own slot (dropped edges on a dump slot)."""
+    E = dest.shape[0]
+    d = torch.where(keep, dest.long(), D)
+    order = torch.argsort(d, stable=True)
+    ds = d[order]
+    counts = torch.zeros((D + 1,), dtype=torch.int64, device=dest.device).index_add_(0, d, torch.ones_like(d))
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(E, device=dest.device) - starts[ds]
+    slot = torch.where(ds < D, ds * width + rank, D * width)
+    table = torch.full((D * width + 1,), E, dtype=torch.int64, device=dest.device)
+    table[slot] = order
+    return table[:D * width].view(D, width)
+
+
+def _dests(graph: BAGraph, K: int, L: int):
+    e_pose, e_point = graph.e_pose.long(), graph.e_point.long()
+    return (e_pose, K), (e_point, L), (e_pose * L + e_point, K * L)
+
+
+def build_order(graph: BAGraph, K: int, L: int, widths=None) -> BAOrder:
+    """The padded tables of `graph` for K poses and L landmarks.  Edges that
+    `edge_mask` drops contribute exact zeros and are left out.  `widths`
+    (per pose, per landmark, per cross block) are bounds the caller knows
+    from the graph's structure; without them the tables are as wide as the
+    graph needs, at the cost of one host read."""
+    vm = edge_mask(graph)
+    dests = _dests(graph, K, L)
+    if widths is None:
+        widths = torch.stack([torch.zeros((n + 1,), dtype=torch.int64, device=vm.device)
+                              .index_add_(0, torch.where(vm, d, n), torch.ones_like(d))[:n].amax()
+                              for d, n in dests]).tolist()
+    return BAOrder(*(_segment_table(d, vm, n, max(w, 1)) for (d, n), w in zip(dests, widths)))
+
+
+def order_for(graph: BAGraph, K: int, L: int, widths=None):
+    """`build_order`'s tables where the graph lies on a card; None on a CPU,
+    where `index_add_` already sums in edge order."""
+    return build_order(graph, K, L, widths) if graph.e_pose.is_cuda else None
+
+
+def _segment_sum(terms: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """(D, C) sums of the (E, C) per-edge terms over each row of `table`."""
+    padded = torch.cat([terms, terms.new_zeros((1, terms.shape[1]))])
+    return padded[table].sum(1)
+
+
 def build_blocks(graph: BAGraph, poses: torch.Tensor, points: torch.Tensor, kernel: str, delta: float,
-                 with_chi: bool = False):
+                 with_chi: bool = False, order: BAOrder = None):
     """buildHessian (problem.cpp:273-358): per-edge blocks summed into the
-    pose and landmark blocks by `index_add_`, the cross blocks on the flat
-    index e_pose * L + e_point.
+    pose, landmark and (pose, landmark) cross blocks in edge order: through
+    the padded tables of `order` where given or on a card (built here if
+    needed), by `index_add_` on a CPU otherwise.
 
     Masking as the reference's (edge_soa.py:230-248): residuals of invalid
     edges are zeroed before the robust kernel, the rank-one term of W is
@@ -143,14 +208,19 @@ def build_blocks(graph: BAGraph, poses: torch.Tensor, points: torch.Tensor, kern
     JW = J.transpose(1, 2) @ W                      # (E, 9, 2)
     H_e = JW @ J                                    # (E, 9, 9)
     b_e = -drho[:, None] * (J * r[:, :, None]).sum(1)  # (E, 9): -rho' J^T r (problem.cpp:329)
-    e_pose = graph.e_pose.long()
-    e_point = graph.e_point.long()
-    dt, dev = r.dtype, r.device
-    Hpp = torch.zeros((K, 6, 6), dtype=dt, device=dev).index_add_(0, e_pose, H_e[:, :6, :6])
-    Hll = torch.zeros((L, 3, 3), dtype=dt, device=dev).index_add_(0, e_point, H_e[:, 6:, 6:])
-    Hpl = torch.zeros((K * L, 6, 3), dtype=dt, device=dev).index_add_(0, e_pose * L + e_point, H_e[:, :6, 6:])
-    bp = torch.zeros((K, 6), dtype=dt, device=dev).index_add_(0, e_pose, b_e[:, :6])
-    bl = torch.zeros((L, 3), dtype=dt, device=dev).index_add_(0, e_point, b_e[:, 6:])
+    E = r.shape[0]
+    terms = (torch.cat([H_e[:, :6, :6].reshape(E, 36), b_e[:, :6]], dim=1),   # per pose
+             torch.cat([H_e[:, 6:, 6:].reshape(E, 9), b_e[:, 6:]], dim=1),    # per landmark
+             H_e[:, :6, 6:].reshape(E, 18))                                   # per cross block
+    if order is None and r.is_cuda:
+        order = build_order(graph, K, L)
+    if order is not None:
+        pose_s, point_s, Hpl = (_segment_sum(x, tab) for x, tab in zip(terms, order))
+    else:
+        pose_s, point_s, Hpl = (x.new_zeros((n, x.shape[1])).index_add_(0, d, x)
+                                for x, (d, n) in zip(terms, _dests(graph, K, L)))
+    Hpp, bp = pose_s[:, :36].reshape(K, 6, 6), pose_s[:, 36:]
+    Hll, bl = point_s[:, :9].reshape(L, 3, 3), point_s[:, 9:]
     blocks = BABlocks(Hpp=Hpp, Hll=Hll, Hpl=Hpl.view(K, L, 6, 3), bp=bp, bl=bl)
     if with_chi:
         # Invalid edges have r = 0, so rho0 = 0 there for every kernel.

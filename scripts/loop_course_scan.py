@@ -13,14 +13,13 @@ first frame without alignment) and the error of the last frame.  Courses:
 tail, which runs on past the revisited straight, `lap2` two laps, `lap3`
 three.
 
-`index_add_` on a card sums duplicate indices in no fixed order
-(solver/schur.py), and over hundreds of frames that rounding decides the
-odometry's drift, so two runs on the same frames differ.  With
-`--deterministic` the runs are made under
-`torch.use_deterministic_algorithms(True)`; each line then also says how many
-leading frames of the run are bit-equal to the first run's with the detector
-shut: all of them for a rerun of that arm, those before the first closure
-for the other arm.
+Window BA sums its blocks in an order fixed by the graph (solver/schur.py),
+so two runs on the same frames give the same bits; `--deterministic` runs
+them under `torch.use_deterministic_algorithms(True)` as well, which gave
+the same digests on `lap2`.  Each line also says how many leading frames of
+the run are bit-equal to the first run's with the detector shut: all of
+them for a rerun of that arm, those before the first closure for the other
+arm.
 
 With `--dump DIR` the open-detector arm of every run also writes
 DIR/loop_records_<course>_<run>.npz: what `VisualOdometry` gave

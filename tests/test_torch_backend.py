@@ -121,6 +121,21 @@ def test_build_problem_bit_equal(ref, case):
                                       err_msg=name)
 
 
+@pytest.mark.parametrize("case", ["init", "window"])
+def test_ba_sum_widths_hold(ref, case):
+    """`solve_window` sizes its fixed-order sum tables by the window's
+    structure (2 NF edges per slot, 2 KW per landmark, one per camera per
+    slot and landmark) without reading the device; the graph's own widths
+    stay within them."""
+    from legoslam_tpu_torch.solver import schur
+
+    cfg = ref["cfg"]
+    p, _ = backend.build_problem(cfg, ref["port_rig"], state.worldmap_from_numpy(ref["maps"][case]))
+    need = [x.shape[1] for x in schur.build_order(p.graph, cfg.caps.window, p.points.shape[0])]
+    assert need[0] > 1 and need[1] > 1
+    assert need[0] <= 2 * cfg.caps.max_features and need[1] <= 2 * cfg.caps.window and need[2] <= 2, need
+
+
 @pytest.mark.parametrize("chis,expected", [
     ([1.0] * 4 + [100.0] * 6, 5.991 * 32),  # ratio 0.4 until the 5-doubling cap
     ([1.0] * 9 + [100.0], 5.991),           # ratio 0.9 at once

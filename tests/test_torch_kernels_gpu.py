@@ -17,7 +17,9 @@ The frame-mode entry of the KLT kernel is held to the same bars, forward
 and backward, and its restart rule on lanes that fail the coarsest level.
 
 Window BA has no kernel of its own (PyTorch ops); its card run is held
-against the same call on a CPU copy of the map with chip_smoke.py's bars.
+against the same call on a CPU copy of the map with chip_smoke.py's bars,
+and two card runs on one map must give the same bits (the BA sums run in
+an order fixed by the graph, solver/schur.py).
 So are loop verification (`LoopCloser._verify`) and `marginalize`.
 """
 
@@ -322,6 +324,31 @@ def test_ba_step_card_matches_cpu(cuda, monkeypatch, linear_solver):
     kf_lm = wmap.kf_lm.cpu().numpy()
     ids = kf_lm[agree & (kf_lm >= 0)]
     np.testing.assert_array_equal(map_g.lm_obs.cpu().numpy()[ids], map_c.lm_obs.numpy()[ids])
+
+
+def test_ba_step_is_reproducible(cuda, monkeypatch):
+    """Two `backend.ba_step` calls on one map at the default capacities give
+    bit-equal maps and stats, without torch.use_deterministic_algorithms."""
+    from legoslam_tpu_torch.pipeline import backend
+    from legoslam_tpu_torch.pipeline.dataset import SyntheticPlanesDataset
+    from legoslam_tpu_torch.pipeline.visual_odometry import VisualOdometry
+    from legoslam_tpu_torch.utils.config import Config
+
+    calls = []
+    ba_step = backend.ba_step
+    monkeypatch.setattr(backend, "ba_step", lambda *a: (calls.append(a), ba_step(*a))[1])
+    ds = SyntheticPlanesDataset(n_frames=5, shape=(160, 240), focal=260.0, baseline=0.54, speed=0.25)
+    config = Config({"stereo_depth_inferior_limit": 2.0, "stereo_depth_superior_limit": 50.0,
+                     "detect_mask_half": 6, "gftt_min_distance": 6, "max_keyframe_gap": 2})
+    vo = VisualOdometry(config=config, dataset=ds)
+    assert vo.init() and not torch.are_deterministic_algorithms_enabled()
+    while vo.step():
+        pass
+    cfg, rig, wmap, ba_cfg = calls[-1]
+    (m1, s1), (m2, s2) = ba_step(cfg, rig, wmap, ba_cfg), ba_step(cfg, rig, wmap, ba_cfg)
+    for name in ("lm_pos", "lm_obs", "kf_pose", "kf_obs_left", "kf_obs_right"):
+        assert torch.equal(getattr(m1, name), getattr(m2, name)), name
+    assert torch.equal(s1.chi, s2.chi) and s1.attempts == s2.attempts and s1.iterations == s2.iterations
 
 
 def test_loop_verify_card_matches_cpu(cuda):

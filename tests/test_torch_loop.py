@@ -366,6 +366,50 @@ def test_loop_hook_frame_ids_match_reference_driver():
         np.testing.assert_array_equal(a.thumb, b.thumb)
 
 
+class _FixedCorrection(_StubCloser):
+    """Returns one fixed correction G at the registration of `frame_id`."""
+
+    def __init__(self, frame_id, G):
+        super().__init__()
+        self.frame_id, self.G = frame_id, G
+
+    def add_keyframe(self, frame_id, img, T_cw, uv, p_world):
+        super().add_keyframe(frame_id, img, T_cw, uv, p_world)
+        return (0, self.G) if frame_id == self.frame_id else None
+
+
+def test_loop_correction_applied_at_the_reference_frame():
+    """Both drivers run the same 12 frames with the closer stubbed to return
+    one fixed G when frame 7 (the frame after keyframe 6) is registered.
+    The reference reads that record a frame late and applies G to the carry
+    after frame 8, so frame 8 is reported in the uncorrected world and frame
+    9 on in the corrected one; the port must do the same.  Every frame's
+    T_cw agrees with the reference's within 5e-2 (the BA-inline bar of
+    tests/test_torch_vo.py)."""
+    G = _yaw_pose(4.0, [0.3, -0.1, 0.5])
+    jvo = j_vo.VisualOdometry(config=JConfig({**HOOK_CONFIG, "ba_assembly_precision": "f32"}),
+                              dataset=_hook_dataset(JDataset))
+    assert jvo.init()
+    jstub = jvo.loop_closer = _FixedCorrection(7, G)
+    jvo.run()
+    runs = {}
+    for name, closer in (("plain", _StubCloser()), ("corrected", _FixedCorrection(7, G))):
+        vo = VisualOdometry(config=Config(HOOK_CONFIG), dataset=_hook_dataset(TDataset), device="cpu")
+        assert vo.init()
+        vo.loop_closer = closer
+        vo.run()
+        runs[name] = vo.trajectory_T_cw()
+    assert [a[0] for a in jstub.added] == [a[0] for a in closer.added] == [1, 2, 7, 11]
+    T, T_ref, plain = runs["corrected"], np.asarray(jvo.trajectory_T_cw()), runs["plain"]
+    np.testing.assert_allclose(T, T_ref, atol=5e-2)
+    # frame 8: the uncorrected world, bit for bit; frame 9: T_cw G^-1 of the uncorrected run
+    np.testing.assert_array_equal(T[:9], plain[:9])
+    G_inv = np.linalg.inv(G)
+    for T_run in (T, T_ref):
+        assert np.abs(T_run[8] - plain[8]).max() < 5e-2 < np.abs(T_run[8] @ G - plain[8]).max()
+        assert np.abs(T_run[9] - plain[9] @ G_inv).max() < 5e-2 < np.abs(T_run[9] - plain[9]).max()
+
+
 @pytest.mark.slow
 def test_loop_closure_end_to_end():
     """tests/test_loop_closure.py::test_loop_closure_end_to_end through the

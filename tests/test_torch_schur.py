@@ -9,6 +9,13 @@ port's `index_add_` against the reference's one-hot contractions); the
 Schur system and its solution within 1e-3 of their largest entry (a
 Cholesky or CG solve in float32 amplifies that rounding by the condition
 number).
+
+The port sums each block's edges in an order fixed by the graph: on a card
+through padded gathers (`schur.BAOrder`), so that it gives the same bits on
+every run, on a CPU by `index_add_`, which adds in edge order.  The padded
+sums are held to `index_add_`'s within the same 1e-4, and a graph rebuilt
+with its edges moved, the edge order within each destination kept, must
+give the same bits both ways.
 """
 
 import jax.numpy as jnp
@@ -94,6 +101,52 @@ def test_build_blocks(problem, kernel):
     assert np.isnan(chis).any()
     fin = ~np.isnan(ref_chis)
     np.testing.assert_allclose(chis[fin], ref_chis[fin], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("kernel", [j_robust.HUBER, j_robust.TRIVIAL])
+def test_fixed_order_sum_matches_index_add(problem, kernel):
+    """The card's padded sums (tables given) against `index_add_` (a CPU without tables)."""
+    _, poses, points, g = problem
+    P, X = t(poses), t(points)
+    padded = schur.build_blocks(g, P, X, kernel, DELTA, order=schur.build_order(g, P.shape[0], X.shape[0]))
+    scattered = schur.build_blocks(g, P, X, kernel, DELTA)
+    assert schur.order_for(g, P.shape[0], X.shape[0]) is None
+    for name in schur.BABlocks._fields:
+        _close(to_numpy(getattr(padded, name)), to_numpy(getattr(scattered, name)), 1e-4, name)
+
+
+def _permuted(graph, perm):
+    return graph._replace(**{f: getattr(graph, f)[perm] for f in ("e_pose", "e_point", "e_cam", "e_uv", "e_valid")})
+
+
+@pytest.mark.parametrize("padded", [True, False], ids=["tables", "index_add"])
+def test_fixed_order_is_the_graphs(problem, padded):
+    """Edges stably sorted by pose keep each pose's and each cross block's
+    order: those blocks keep their bits; sorted by landmark, the landmark
+    and cross blocks keep theirs, both with the card's padded tables and
+    with `index_add_` on the CPU.  Tables wider than needed (the widths a
+    caller knows) give the same bits again."""
+    _, poses, points, g = problem
+    P, X = t(poses), t(points)
+    K, L = P.shape[0], X.shape[0]
+
+    def blocks(graph, order=None):
+        order = order or (schur.build_order(graph, K, L) if padded else None)
+        return schur.build_blocks(graph, P, X, robust.HUBER, DELTA, order=order)
+
+    g = _permuted(g, torch.from_numpy(np.random.default_rng(5).permutation(len(g.e_pose))))
+    base = blocks(g)
+    for key, same in ((g.e_pose, ("Hpp", "bp", "Hpl")), (g.e_point, ("Hll", "bl", "Hpl"))):
+        perm = torch.argsort(key, stable=True)
+        assert not torch.equal(perm, torch.arange(len(perm)))
+        moved = blocks(_permuted(g, perm))
+        for name in same:
+            assert torch.equal(getattr(moved, name), getattr(base, name)), name
+    if padded:
+        tight = schur.build_order(g, K, L)
+        wide = schur.build_order(g, K, L, widths=tuple(x.shape[1] + 3 for x in tight))
+        assert all(w.shape[1] == x.shape[1] + 3 for w, x in zip(wide, tight))
+        assert all(torch.equal(a, b) for a, b in zip(blocks(g, wide), base))
 
 
 @pytest.mark.parametrize("method", ["cholesky", "pcg"])
