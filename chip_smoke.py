@@ -83,6 +83,28 @@
    frame ids equal, the dataset's index 30 after the load; prints the
    checkpoint's size and its save and load ms.
 
+12. `process_chunk` over step 5's 40 frames, already on the card: the same
+   trajectory as step 5's, bit for bit (it is `process_frame` in a loop);
+   prints ms/frame.
+13. `ba_mode: async` (`ba_async_device: auto`: on one card the solve runs
+   on a worker thread and a side stream of the same device) over the same
+   frames, twice: every frame TRACKING_GOOD, ATE < 0.05 m, every dispatched
+   solve merged, none pending.  Prints each run's ATE, the frames before
+   which solves were merged, `skipped`, ms/frame and the median tracking
+   frame with a solve in flight and without (each frame ends in a
+   synchronize of the main stream only), beside step 5's inline numbers.
+   Two runs need not give the same bits (a merge lands when its solve is
+   ready).
+14. The device pose graph (`solver/pose_graph.py`): a drifting chain of 92
+   poses (the loop course's keyframe records) closed by one loop edge, on
+   the card twice (bit-equal) and on the CPU, each run to convergence (50
+   LM iterations at most, stopping at a chi change under 1e-10): chi within
+   1e-4 relative, poses within 1e-4, drift reduced.
+15. Distributed BA (`parallel/dist_ba.py`) over NCCL at world size 1,
+   through `backend.ba_step`'s `solve_fn` seam on step 6's map, against
+   step 6's `lm.solve_ba` at tests/test_dist_ba.py's bars (chi 1e-3
+   relative, poses 1e-3, points 5e-3); prints ms and host reads.
+
 The kernel launch counts are set to 0 just before each slice and read just
 after it (step 10's subprocess is counted through step 11's run of the same
 frames).  Prints one JSON line of per-kernel results, then, as the last
@@ -215,6 +237,14 @@ KITTI_ATE_MAX = 0.07
 KITTI_DRIFT_MAX = 0.9
 
 # Roofline of one H100 SXM (NVIDIA's data sheet; at a 700 W power limit).
+PG_POSES = 92                       # the loop course's keyframe records (step 9)
+PG_LOOPS = ((91, 0),)               # tests/test_pose_graph_and_prior.py's chain: one loop edge, weight 100
+PG_RTOL = 1e-4                      # pose graph, card against CPU: chi (relative) and pose entries
+# Run to convergence: optimize's default stop rule (a chi change under 1e-5)
+# ends a solve whose chi is ~5e-3 before 1e-4 of it is resolved.
+PG_ITERATIONS, PG_STOP = 50, 1e-10
+# Distributed BA against the single solve: tests/test_dist_ba.py:33-42's bars.
+DIST_CHI_RTOL, DIST_POSE_ATOL, DIST_POINT_ATOL = 1e-3, 1e-3, 5e-3
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12    # float32 outside the tensor cores
 # FLOPs of one KLT GN iteration: 81 bilinear samples (three lerps of 4),
@@ -857,6 +887,8 @@ def run_slices(dev, kind, smi, klt_k, pose_k, frames, lap_frames, kitti_root, sc
     print(f"slice inline, run twice: trajectory sha1 {digests[0]} and {digests[1]}, bit-equal "
           f"{digests[0] == digests[1]}, launches {launches_inline2}", flush=True)
     check(digests[0] == digests[1], "two runs of the default path gave two trajectories")
+    inline = {"digest": digests[0], "ate": ate_inline, "ms_per_frame": float(np.mean(frame_ms[WARMUP:])),
+              "tracking_median": float(np.median(track)), "keyframes": n_kf}
 
     # --- 6. window BA at full width, card against CPU -----------------------
     cfg_b, rig_b, wmap_b, ba_cfg_b = ba_calls[-1][1]
@@ -1096,13 +1128,15 @@ def run_slices(dev, kind, smi, klt_k, pose_k, frames, lap_frames, kitti_root, sc
                               valid_j, closed["klt_cfg"], min_tracked=loop_closure.LoopConfig().min_inliers)[0]
 
     launches_kitti = run_kitti_steps(kind, smi, kitti_root, scratch, reset_counts, read_counts)
+    launches_more = run_chunk_async_graph_dist(dev, kind, smi, frames, ds, config, inline, ba_calls[-1][1],
+                                               (map_g, st_g), reset_counts, read_counts)
 
     # library_ms: no single PyTorch call computes any of the three functions.
     slices = (launches_off, launches_inline, launches_inline2, launches_modes, launches_marg, arms[1.1]["launches"],
-              closed["launches"], launches_kitti)
+              closed["launches"], launches_kitti, *launches_more)
     launches = {k: sum(sl[k] for sl in slices) for k in launches_off}
     check(all(n > 0 for n in launches.values()), f"a kernel was never launched on the main paths: {launches}")
-    n_frames_all = 5 * N_FRAMES + 2 * len(traj) + KITTI_FRAMES
+    n_frames_all = 8 * N_FRAMES + 2 * len(traj) + KITTI_FRAMES
     results[1]["max_abs_err"] = max(results[1]["max_abs_err"], err_loop)  # klt_pyramid_frame
     kernels = [{"name": r["name"], "route": r["route"], "source": r["source"], "replaces": r["replaces"],
                 "launches": launches[r["name"]], "launches_per_frame": launches[r["name"]] / n_frames_all,
@@ -1112,6 +1146,179 @@ def run_slices(dev, kind, smi, klt_k, pose_k, frames, lap_frames, kitti_root, sc
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))
+
+
+def run_chunk_async_graph_dist(dev, kind, smi, frames, ds, config, inline, ba_args, ba_card, reset_counts,
+                               read_counts):
+    """Steps 12 to 15; returns the kernel launches of the chunk and of the two
+    async runs."""
+    from legoslam_tpu_torch.pipeline import backend
+    from legoslam_tpu_torch.pipeline.visual_odometry import (FrontendStatus, VisualOdometry, initial_carry,
+                                                             process_chunk)
+    from legoslam_tpu_torch.utils import evaluation
+
+    def digest(T_wc):
+        return hashlib.sha1(np.ascontiguousarray(T_wc).tobytes()).hexdigest()[:12]
+
+    # --- 12. process_chunk over step 5's frames, already on the card ----------
+    vo = VisualOdometry(config=config, dataset=FrameList(frames, ds.rig))
+    check(vo.init(), "VisualOdometry.init failed (chunk)")
+    imgs_l = torch.from_numpy(np.stack([f[0] for f in frames]).astype(np.float32)).to(dev)
+    imgs_r = torch.from_numpy(np.stack([f[1] for f in frames]).astype(np.float32)).to(dev)
+    carry = initial_carry(vo.frontend_cfg, SHAPE, torch.float32, dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    carry, outs = process_chunk(vo.frontend_cfg, vo.rig, carry, imgs_l, imgs_r, np.arange(N_FRAMES), vo.ba_cfg)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches_chunk = read_counts()
+    T_wc = np.linalg.inv(outs.T_cw.cpu().numpy())
+    statuses, kf = outs.status.cpu().numpy(), outs.kf_inserted.cpu().numpy()
+    n_track = N_FRAMES - 1
+    print(f"chunk: process_chunk over the {N_FRAMES} frames of step 5 on the card: trajectory sha1 {digest(T_wc)} "
+          f"(step 5: {inline['digest']}), keyframes {int(kf.sum())}, {1e3 * dt / N_FRAMES:.3f} ms/frame over all "
+          f"{N_FRAMES} frames (step 5, frames {WARMUP}..: {inline['ms_per_frame']:.3f}), launches {launches_chunk} "
+          f"on {kind} ({smi})", flush=True)
+    check(digest(T_wc) == inline["digest"], "process_chunk differs from step 5's stepwise run")
+    check(bool((statuses == FrontendStatus.TRACKING_GOOD).all()), "a frame did not track (chunk)")
+    check(all(launches_chunk[k] >= n_track for k in MAIN_KERNELS), "a kernel was not launched on every tracking "
+          "frame (chunk)")
+
+    # --- 13. ba_mode async, twice -----------------------------------------------
+    launches_async = []
+    for run in (1, 2):
+        vo = VisualOdometry(config=config.override(ba_mode="async", ba_async_device="auto"),
+                            dataset=FrameList(frames, ds.rig))
+        check(vo.init(), "VisualOdometry.init failed (async)")
+        ab = vo.async_backend
+        check(ab.ba_device is None and ab._stream is not None and torch.cuda.device_count() == 1,
+              "async BA on one card is not the side stream of the same device")
+        merged_at, do_merge = [], ab._do_merge
+
+        def recording_merge(wmap, do_merge=do_merge, merged_at=merged_at, vo=vo):
+            merged_at.append(len(vo.outputs))  # the frame about to be processed
+            return do_merge(wmap)
+
+        ab._do_merge = recording_merge
+        main = torch.cuda.current_stream(dev)
+        frame_ms, in_flight = [], []
+        reset_counts()
+        for _ in range(N_FRAMES):
+            job, merged = ab.pending, ab.stats["merged"]
+            t0 = time.perf_counter()
+            check(vo.step(), "the dataset ended early")
+            main.synchronize()  # this frame's work; a solve on the side stream goes on
+            frame_ms.append(1e3 * (time.perf_counter() - t0))
+            in_flight.append(job is not None and ab.stats["merged"] == merged)
+        t0 = time.perf_counter()
+        vo.flush_ba()
+        torch.cuda.synchronize()
+        flush_ms = 1e3 * (time.perf_counter() - t0)
+        launches_async.append(read_counts())
+        statuses, kf = vo.statuses(), vo.keyframe_flags()
+        T_wc = vo.trajectory_T_wc()
+        ate = evaluation.ate_rmse(T_wc[:, :3, 3], ds.gt_T_wc[:N_FRAMES, :3, 3])
+        st = dict(ab.stats)
+        track_busy = [frame_ms[i] for i in range(WARMUP, N_FRAMES) if not kf[i] and in_flight[i]]
+        track_free = [frame_ms[i] for i in range(WARMUP, N_FRAMES) if not kf[i] and not in_flight[i]]
+        kfs = [frame_ms[i] for i in range(WARMUP, N_FRAMES) if kf[i]]
+        med = lambda x: f"{np.median(x):.3f}" if x else "none"  # noqa: E731
+        print(f"async run {run} (ba_async_device auto: the side stream of {dev}): statuses all TRACKING_GOOD "
+              f"{bool((statuses == FrontendStatus.TRACKING_GOOD).all())}, keyframes {int(kf.sum())}, stats {st}, "
+              f"solves merged before frames {merged_at}, chi {[round(float(x.chi), 4) for x in ab.merged_stats]}, "
+              f"ATE {ate:.5f} m (bar {ATE_MAX}), trajectory sha1 {digest(T_wc)} on {kind} ({smi})", flush=True)
+        print(f"async run {run}: {np.mean(frame_ms[WARMUP:]):.3f} ms/frame over frames {WARMUP}..{N_FRAMES - 1} "
+              f"(each ends in a synchronize of the main stream), final flush {flush_ms:.3f} ms; tracking frames "
+              f"with a solve in flight n={len(track_busy)} median {med(track_busy)} ms, without n={len(track_free)} "
+              f"median {med(track_free)} ms; keyframe frames n={len(kfs)} median {med(kfs)} ms; step 5 inline: "
+              f"{inline['ms_per_frame']:.3f} ms/frame, tracking median {inline['tracking_median']:.3f} ms, ATE "
+              f"{inline['ate']:.5f} m; launches {launches_async[-1]} on {kind} ({smi})", flush=True)
+        check(bool((statuses == FrontendStatus.TRACKING_GOOD).all()), f"a frame did not track (async run {run})")
+        check(ate < ATE_MAX, f"ATE {ate:.4f} m (async run {run})")
+        check(st["merged"] == st["dispatched"] >= 1 and ab.pending is None, f"async BA did not settle: {st}")
+        check(all(launches_async[-1][k] >= n_track for k in MAIN_KERNELS),
+              f"a kernel was not launched on every tracking frame (async run {run})")
+
+    # --- 14. the device pose graph, card against CPU ------------------------------
+    from legoslam_tpu_torch.geometry import se3
+    from legoslam_tpu_torch.solver import lm, pose_graph
+
+    PG_CFG = lm.LMConfig(iterations=PG_ITERATIONS, diff_chi_threshold=PG_STOP)
+    rng = np.random.default_rng(SEED)
+    n = PG_POSES
+    step = se3.se3_exp(torch.tensor([0.0, 0.0, 0.5, 0.0, 2 * np.pi / n, 0.0]))
+    gt = [torch.eye(4)]
+    for _ in range(1, n):
+        gt.append(gt[-1] @ step)
+    e_i, e_j, meas, est = [], [], [], [gt[0]]
+    for i in range(1, n):
+        rel = se3.se3_exp(torch.from_numpy(rng.normal(scale=0.02, size=6).astype(np.float32))) @ (
+            gt[i] @ torch.linalg.inv(gt[i - 1]))
+        e_i.append(i), e_j.append(i - 1), meas.append(rel), est.append(rel @ est[-1])
+    for i, j in PG_LOOPS:
+        e_i.append(i), e_j.append(j), meas.append(gt[i] @ torch.linalg.inv(gt[j]))
+    E = len(e_i)
+    fixed = torch.zeros(n, dtype=torch.bool)
+    fixed[0] = True
+    graph = pose_graph.PoseGraph(e_i=torch.tensor(e_i), e_j=torch.tensor(e_j), T_meas=torch.stack(meas),
+                                 weight=torch.tensor([1.0] * (n - 1) + [100.0] * len(PG_LOOPS)),
+                                 valid=torch.ones(E, dtype=torch.bool), fixed=fixed)
+    card = pose_graph.PoseGraph(*(x.to(dev) for x in graph[:6]))
+    P0 = torch.stack(est)
+    (P1, r1), (P2, r2) = (pose_graph.optimize(P0.to(dev), card, cfg=PG_CFG) for _ in range(2))
+    Pc, rc = pose_graph.optimize(P0, graph, cfg=PG_CFG)
+    ms_pg = wall_ms(lambda: pose_graph.optimize(P0.to(dev), card, cfg=PG_CFG), 5)
+    drift = lambda P: float(np.linalg.norm(  # noqa: E731
+        np.linalg.inv(P.cpu().double().numpy())[:, :3, 3] - np.linalg.inv(torch.stack(gt).double().numpy())[:, :3, 3],
+        axis=1).max())
+    chi_rel = abs(float(r1.chi) - float(rc.chi)) / abs(float(rc.chi))
+    dP = float((P1.cpu() - Pc).abs().max())
+    print(f"pose graph: {n} poses, {E} edges ({len(PG_LOOPS)} loop); chi card {float(r1.chi):.7f} cpu "
+          f"{float(rc.chi):.7f} (relative {chi_rel:.2e}, bar {PG_RTOL}), poses max |d| {dP:.2e} (bar {PG_RTOL}), two "
+          f"card runs bit-equal {bool(torch.equal(P1, P2) and torch.equal(r1.chi, r2.chi))}; LM iterations "
+          f"{r1.iterations} attempts {r1.attempts}; largest position error {drift(P0):.4f} m before, {drift(P1):.4f} m "
+          f"after; {ms_pg:.3f} ms per optimize (card wall, median of 5) on {kind} ({smi})", flush=True)
+    check(torch.equal(P1, P2) and torch.equal(r1.chi, r2.chi), "two card runs of the pose graph differ")
+    check(chi_rel <= PG_RTOL and dP <= PG_RTOL, "the pose graph differs between card and CPU")
+    check(drift(P1) < drift(P0), "the pose graph did not reduce the drift")
+
+    # --- 15. distributed BA over NCCL at world size 1, through ba_step's seam ----
+    import socket
+
+    import torch.distributed as dist
+
+    from legoslam_tpu_torch.parallel import dist_ba, mesh as mesh_mod
+
+    cfg_b, rig_b, wmap_b, ba_cfg_b = ba_args
+    map_g, st_g = ba_card
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        mesh = mesh_mod.make_mesh()
+        solve_fn = dist_ba.make_dist_solve_fn(mesh)
+        (map_d, st_d), reads = count_host_reads(lambda: backend.ba_step(cfg_b, rig_b, wmap_b, ba_cfg_b,
+                                                                        solve_fn=solve_fn))
+        ms_d = wall_ms(lambda: backend.ba_step(cfg_b, rig_b, wmap_b, ba_cfg_b, solve_fn=solve_fn), 5)
+        backend_name = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    alive = map_g.lm_alive
+    chi_rel = abs(float(st_d.chi) - float(st_g.chi)) / abs(float(st_g.chi))
+    dpose = float((map_d.kf_pose - map_g.kf_pose).abs().max())
+    dpts = float((map_d.lm_pos - map_g.lm_pos)[alive].abs().max())
+    print(f"dist BA: {backend_name} at world size {mesh.world_size} on {mesh.device}, step 6's map through "
+          f"backend.ba_step(solve_fn=make_dist_solve_fn(mesh)): chi {float(st_d.chi):.6f} against lm.solve_ba's "
+          f"{float(st_g.chi):.6f} (relative {chi_rel:.2e}, bar {DIST_CHI_RTOL}), poses max |d| {dpose:.2e} (bar "
+          f"{DIST_POSE_ATOL}), points max |d| {dpts:.2e} (bar {DIST_POINT_ATOL}); LM attempts {st_d.attempts} "
+          f"(single {st_g.attempts}), host reads {reads}; {ms_d:.3f} ms per ba_step (card wall, median of 5) on "
+          f"{kind} ({smi})", flush=True)
+    check(chi_rel <= DIST_CHI_RTOL, "distributed BA's chi disagrees with the single solve")
+    check(dpose <= DIST_POSE_ATOL and dpts <= DIST_POINT_ATOL, "distributed BA disagrees with the single solve")
+    check(map_d.lm_pos.is_cuda and st_d.chi.is_cuda, "distributed BA left the card")
+    return [launches_chunk, *launches_async]
 
 
 def kitti_errors(T_wc, gt):

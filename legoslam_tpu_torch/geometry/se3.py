@@ -142,6 +142,10 @@ def transform(T: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return _matvec(T[..., :3, :3], p) + T[..., :3, 3]
 
 
+def identity(dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.eye(4, dtype=dtype, device=device)
+
+
 def so3_project(R: torch.Tensor, iterations: int = 2) -> torch.Tensor:
     """Project ``(..., 3, 3)`` near-rotations onto SO(3) by the Newton polar
     iteration ``R <- R (3I - R^T R) / 2``.
@@ -168,6 +172,15 @@ def retract(T: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     finite = torch.all(torch.isfinite(delta), dim=-1)
     delta = torch.where(finite[..., None], delta, torch.zeros_like(delta))
     return se3_orthonormalize(se3_exp(delta) @ T)
+
+
+def adjoint(T: torch.Tensor) -> torch.Tensor:
+    """Adjoint of ``(..., 4, 4)`` transforms for [rho, phi] tangents:
+    Ad(T) = [[R, hat(t) R], [0, R]] (..., 6, 6)."""
+    R = T[..., :3, :3]
+    top = torch.cat([R, hat(T[..., :3, 3]) @ R], dim=-1)
+    bottom = torch.cat([torch.zeros_like(R), R], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
 
 
 def rot_to_quat(R: torch.Tensor) -> torch.Tensor:

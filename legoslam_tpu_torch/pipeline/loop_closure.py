@@ -25,6 +25,8 @@ SE(3) average of the forward and reverse measurement goes through float32
 
 from __future__ import annotations
 
+import os
+import pickle
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
@@ -41,6 +43,17 @@ from legoslam_tpu_torch.utils.logging import get_logger
 log = get_logger("legoslam.loop")
 
 THUMB = (12, 20)  # thumbnail grid (rows, cols)
+
+
+def _debug_dump(tag: str, payload: dict) -> None:
+    """With LEGOSLAM_LOOP_DEBUG=<path> set, append one pickled record
+    ({"tag": tag, **payload}, NumPy arrays) of an accepted closure to
+    <path>: the measurement and stored poses ("closure"), then the pose
+    graph's result ("optimize"), as the reference writes them."""
+    path = os.environ.get("LEGOSLAM_LOOP_DEBUG", "")
+    if path:
+        with open(path, "ab") as f:
+            pickle.dump({"tag": tag, **payload}, f)
 
 
 @dataclass
@@ -209,6 +222,8 @@ class LoopCloser:
         self.stats["verified"] += 1
         i = len(self.records) - 1
         self.loop_edges.append((i, j, M_ij))
+        _debug_dump("closure", dict(i=i, j=j, M=np.asarray(M_ij), n_in=n_in, fids=[r.frame_id for r in self.records],
+                                    pre=np.stack([r.T_cw for r in self.records])))
         T_old_last = self.records[-1].T_cw.copy()
         corrected, chi0, chi1, new_edge_rejected = self._optimize()
         # Acceptance gates: the newest edge must have survived the solve's
@@ -230,6 +245,8 @@ class LoopCloser:
         # edges (observation epochs T_cw_obs stay untouched).
         for k, r in enumerate(self.records):
             r.T_cw = corrected[k].copy()
+        _debug_dump("optimize", dict(pre=None, post=corrected.copy(), fids=[r.frame_id for r in self.records],
+                                     loop_edges=[(a, b, Mm.copy()) for (a, b, Mm) in self.loop_edges]))
         # World-to-world correction from the newest keyframe: x_c = T p_old =
         # T' p_new  =>  p_new = T'^-1 T p_old.
         G = np.linalg.inv(corrected[-1]) @ T_old_last

@@ -190,7 +190,8 @@ def _tensor(x, device) -> torch.Tensor:
     a = np.asarray(x)
     if a.dtype == np.float64:
         a = a.astype(np.float32)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    # ascontiguousarray makes a 0-d array 1-d: keep the shape (scalars stay ()).
+    return torch.from_numpy(np.ascontiguousarray(a).reshape(a.shape)).to(device)
 
 
 def _fields(cls, d: Mapping[str, Any], device, nested=None):

@@ -13,8 +13,12 @@ pair of flags per LM attempt.  On CUDA tensors a tracking frame runs the
 two CUDA kernels (anchored KLT, pose) between a few PyTorch ops; window BA
 runs as PyTorch ops on the card.
 
-`ba_mode` "inline" (the default) runs BA, "off" runs without it; "async"
-(the reference's overlapped backend) is not ported yet and raises.
+`ba_mode` "inline" (the default) runs BA, "off" runs without it, and
+"async" overlaps it with tracking (pipeline/async_backend.py: a worker
+thread, a side CUDA stream on a card), merging each solve into the map at
+the first frame after it finishes.  `process_chunk` runs `process_frame`
+over F stacked frames and stacks the outputs, the reference's throughput
+API.
 
 With `use_loop_closure` the driver feeds a `LoopCloser`
 (pipeline/loop_closure.py) from `_loop_hook`.  The reference registers, for
@@ -37,6 +41,7 @@ the landmark table on every keyframe.
 
 from __future__ import annotations
 
+import dataclasses
 import enum
 from dataclasses import dataclass
 from typing import Any, List, Optional, Tuple
@@ -108,8 +113,10 @@ def process_frame(
     frame_id: int,
     ba_cfg: backend_mod.BAConfig = backend_mod.BAConfig(),
     inline_ba: bool = True,
+    ba_solve_fn=None,
 ) -> Tuple[VOCarry, FrameOutput]:
-    """One SLAM frame, with window BA after a keyframe when `inline_ba`."""
+    """One SLAM frame, with window BA after a keyframe when `inline_ba`
+    (solved by `ba_solve_fn` where given, as `backend.ba_step` takes it)."""
     pyr_l = tuple(pyr_ops.build_pyramid(img_l, cfg.klt.levels))
     eye = torch.eye(4, dtype=img_l.dtype, device=img_l.device)
     zero = torch.zeros((), dtype=torch.int32, device=img_l.device)
@@ -118,7 +125,9 @@ def process_frame(
     def run_ba(wmap):
         if not inline_ba:
             return wmap, no_ba
-        return backend_mod.ba_step(cfg, rig, wmap, ba_cfg)
+        if ba_solve_fn is None:
+            return backend_mod.ba_step(cfg, rig, wmap, ba_cfg)
+        return backend_mod.ba_step(cfg, rig, wmap, ba_cfg, solve_fn=ba_solve_fn)
 
     if carry.status == FrontendStatus.INITING:
         pyr_r = tuple(pyr_ops.build_pyramid(img_r, cfg.klt.levels))
@@ -170,6 +179,48 @@ def process_frame(
     return VOCarry(int(status), feats, wmap, T_new, rel, pyr_l, since_kf), out
 
 
+def _stack(values: list, device) -> torch.Tensor:
+    if torch.is_tensor(values[0]):
+        return torch.stack(values)
+    return torch.tensor(values, dtype=torch.bool if isinstance(values[0], bool) else torch.int32, device=device)
+
+
+def stack_outputs(outs: List[FrameOutput]) -> FrameOutput:
+    """F per-frame outputs as one `FrameOutput` whose fields (and `ba`'s)
+    carry a leading F axis; host values become tensors on the frames'
+    device (no device read)."""
+    dev = outs[0].T_cw.device
+    ba = backend_mod.BAStats(*(_stack([o.ba[i] for o in outs], dev) for i in range(len(backend_mod.BAStats._fields))))
+    return FrameOutput(**{f.name: ba if f.name == "ba" else _stack([getattr(o, f.name) for o in outs], dev)
+                          for f in dataclasses.fields(FrameOutput)})
+
+
+def process_chunk(
+    cfg: frontend_mod.FrontendConfig,
+    rig: StereoRig,
+    carry: VOCarry,
+    imgs_l: torch.Tensor,
+    imgs_r: torch.Tensor,
+    frame_ids,
+    ba_cfg: backend_mod.BAConfig = backend_mod.BAConfig(),
+    inline_ba: bool = True,
+    ba_solve_fn=None,
+) -> Tuple[VOCarry, FrameOutput]:
+    """Offline / throughput mode: `process_frame` over F stacked stereo
+    frames (`imgs_l`, `imgs_r`: (F, H, W) on the frames' device;
+    `frame_ids`: F ints), the outputs stacked on a leading F axis
+    (`stack_outputs`).  The reference scans the frame step into one
+    program; here it is a loop, so a chunk costs what its frames cost one
+    by one: one inlier-count read per tracking frame, one per LM attempt of
+    window BA, and nothing more.  `VisualOdometry`'s hooks (loop closure,
+    async BA, the viewer) are not run."""
+    outs = []
+    for img_l, img_r, frame_id in zip(imgs_l, imgs_r, torch.as_tensor(frame_ids).tolist()):
+        carry, out = process_frame(cfg, rig, carry, img_l, img_r, int(frame_id), ba_cfg, inline_ba, ba_solve_fn)
+        outs.append(out)
+    return carry, stack_outputs(outs)
+
+
 def _apply_world_correction(carry: VOCarry, G: torch.Tensor) -> VOCarry:
     """Re-anchor the live world after a loop closure (pipeline/loop_closure.py):
     map points p' = G p, camera-from-world poses Q' = Q G^-1; the relative
@@ -204,15 +255,16 @@ class VisualOdometry:
         dataset: Any = None,
         ba_mode: Optional[str] = None,
         device: Any = "cuda",
+        ba_solve_fn=None,
     ):
         self.config = config or (Config.from_yaml(config_path) if config_path else Config())
         self.dataset = dataset
         ba_mode = ba_mode or self.config["ba_mode"]
-        if ba_mode == "async":
-            raise NotImplementedError("async window BA is not ported yet; use ba_mode 'inline' or 'off'")
-        if ba_mode not in ("inline", "off"):
+        if ba_mode not in ("inline", "async", "off"):
             raise ValueError(f"unknown ba_mode {ba_mode!r}")
         self.ba_mode = ba_mode
+        self.ba_solve_fn = ba_solve_fn
+        self.async_backend = None
         self.device = torch.device(device)
         self.frontend_cfg: Optional[frontend_mod.FrontendConfig] = None
         self.rig: Optional[StereoRig] = None
@@ -249,6 +301,18 @@ class VisualOdometry:
             trace=bool(self.config["ba_trace"]),
         )
         schur.check_engine(self.ba_cfg.engine)
+        if self.frontend_cfg.use_marg_prior and self.ba_solve_fn is not None:
+            raise ValueError("use_marg_prior is not supported with an injected ba_solve_fn "
+                             "(distributed BA): the prior needs the single-device solver")
+        self.async_backend = None
+        if self.ba_mode == "async":
+            from legoslam_tpu_torch.pipeline.async_backend import AsyncBackend, pick_ba_device
+
+            self.async_backend = AsyncBackend(
+                self.frontend_cfg, self.rig, self.ba_cfg, solve_fn=self.ba_solve_fn,
+                ba_device=pick_ba_device(str(self.config["ba_async_device"]), self.device),
+                dispatch_every=int(self.config["ba_async_dispatch_every"]), device=self.device,
+            )
         self.log_every = int(self.config["log_every_n_frames"])
         self.loop_closer = None
         if bool(self.config["use_loop_closure"]):
@@ -298,8 +362,17 @@ class VisualOdometry:
         img_r = torch.as_tensor(np.asarray(frame.right, np.float32)).to(self.device)
         if self.carry is None:
             self.carry = initial_carry(self.frontend_cfg, frame.left.shape, torch.float32, self.device)
+        ab = self.async_backend
+        if ab is not None:
+            # Merge a finished solve before this frame tracks (never blocks).
+            self.carry = self.carry.replace(wmap=ab.poll(self.carry.wmap))
         self.carry, out = process_frame(self.frontend_cfg, self.rig, self.carry, img_l, img_r,
-                                        int(frame.frame_id), self.ba_cfg, self.ba_mode == "inline")
+                                        int(frame.frame_id), self.ba_cfg, self.ba_mode == "inline",
+                                        self.ba_solve_fn)
+        if ab is not None:
+            ab.observe(out.kf_inserted)
+            if ab.want_dispatch:
+                ab.dispatch(self.carry.wmap)
         if self.loop_closer is not None:
             self._loop_hook(frame, out)
         if self.viewer is not None:
@@ -352,6 +425,10 @@ class VisualOdometry:
     def _apply_pending_correction(self) -> None:
         G, self._pending_correction = self._pending_correction, None
         if G is not None:
+            if self.async_backend is not None:
+                # A solve in flight was linearized in the old world frame:
+                # settle it before re-anchoring.
+                self.carry = self.carry.replace(wmap=self.async_backend.flush(self.carry.wmap))
             self.carry = _apply_world_correction(self.carry, G)
 
     def _drain_hooks(self) -> None:
@@ -430,8 +507,19 @@ class VisualOdometry:
                             "max_ba_edges", dropped)
 
     def flush_ba(self) -> None:
-        """Settle the asynchronous backend: nothing to settle while BA runs
-        only inline (`ba_mode: async` is not ported)."""
+        """Settle the asynchronous backend: merge the solve in flight, and
+        run one last solve if the cadence is due (the reference's backend
+        likewise drains its last UpdateMap before Stop)."""
+        ab = self.async_backend
+        if ab is None or self.carry is None:
+            return
+        wmap = ab.flush(self.carry.wmap)
+        if ab.want_dispatch:
+            ab.dispatch(wmap)
+            wmap = ab.flush(wmap)
+        self.carry = self.carry.replace(wmap=wmap)
+        log.info("async BA: %d solves dispatched, %d merged, %d keyframe events coalesced while busy",
+                 ab.stats["dispatched"], ab.stats["merged"], ab.stats["skipped"])
 
     # --- results ---
     def frontend_status(self) -> FrontendStatus:

@@ -1,6 +1,6 @@
 """YAML configuration with typed access and defaults (twin of
-legoslam_tpu/utils/config.py; the same DEFAULTS minus the TPU-only keys
-`ba_assembly_precision` and `ba_async_device`).
+legoslam_tpu/utils/config.py; the same DEFAULTS minus the TPU-only key
+`ba_assembly_precision`).
 
 Replaces the reference's `Config` singleton over cv::FileStorage
 (include/legoslam/config.h:26-32, src/config.cpp:5-15), with two upgrades the
@@ -67,6 +67,10 @@ DEFAULTS: Dict[str, Any] = {
     # (overlapped with tracking — the reference's backend-thread split,
     # backend_lego.cpp:38-54, as pipeline/async_backend.py), or "off".
     "ba_mode": "inline",
+    # Device for the async solve: "auto" (a second card when present, else
+    # the frame loop's device on a side stream), "none" (the frame loop's
+    # device), or a card index.
+    "ba_async_device": "auto",
     # Async dispatch cadence in frames (pipeline/async_backend.py banner:
     # host-blind scheduling — keyframe flags are never fetched to the host).
     "ba_async_dispatch_every": 4,
@@ -128,7 +132,9 @@ class Config:
 
         with open(path) as f:
             data = yaml.safe_load(f) or {}
-        # cv::FileStorage YAML begins with a %YAML directive; safe_load handles it.
+        # Keys that begin with "%" are dropped, as the reference drops them.  A
+        # cv::FileStorage file that opens with a `%YAML:1.0` directive does not
+        # get here: `safe_load` raises on it, in the reference too (ROADMAP C13).
         return cls({k: v for k, v in data.items() if not str(k).startswith("%")})
 
     # --- reference-style static API (config.h:26-32) ---

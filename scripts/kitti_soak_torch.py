@@ -1,7 +1,9 @@
 """The JAX package's 1,000-frame KITTI-format soak (tests/test_kitti_soak.py)
 through the port's command line, on one GPU.
 
-    python3 scripts/kitti_soak_torch.py [--frames 1000] [--workers 8] [--cache DIR]
+    python3 scripts/kitti_soak_torch.py [--frames 1000] [--workers 8] [--cache DIR] [--device cpu]
+                                        [--app jax [--xla-isa AVX2]] [--save-trajectory OUT]
+                                        [--against TRAJ ...]
 
 Renders the soak's sequence (376x1240, focal 720, baseline 0.54 m, the
 S-curve at 0.3 m/frame, 6 occluders, photometric noise 1.5) with the port's
@@ -14,7 +16,16 @@ temporary directory) so that a second run skips the render.  Then runs
 the per-frame log), the path length, ATE, the last frame's error and the
 drift in m per 100 m (the last frame's error over the path), against the
 JAX soak's bar of 2.0 (tests/test_kitti_soak.py:147).  Exits non-zero where
-the run fails or the drift is over the bar.
+the run fails or the drift is over the bar.  `--device cpu` runs the port's
+command on the CPU; `--app jax` runs the JAX package's command
+(`apps/run_kitti.py`, on the CPU) on the same frames instead, with
+`--xla_cpu_max_isa` set to `--xla-isa` where given (the reference's
+trajectory moves with XLA's CPU instruction set, ROADMAP C17).
+`--save-trajectory OUT` keeps the run's `trajectory_kitti.txt`;
+`--against TRAJ ...` prints, for each such file of an earlier run on the
+same frames, the largest distance between the two runs' camera positions
+per 50 frames, the first frame at which it passes 0.05, 0.1 and 0.2 m, and
+the largest distance between their frame-to-frame motions.
 
 The S-curve leaves the 12 m half-width corridor at frame 460 (x = 12.02 m,
 26.4 m at most), and the JAX package's run, like the port's, loses track
@@ -50,6 +61,11 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=chip_smoke.SOAK_FRAMES)
     ap.add_argument("--workers", type=int, default=max(1, min(8, os.cpu_count() or 1)))
     ap.add_argument("--cache", default=os.path.join(tempfile.gettempdir(), "legoslam_torch_soak_v1"))
+    ap.add_argument("--device", default="cuda", help="the port's --device")
+    ap.add_argument("--app", choices=("port", "jax"), default="port")
+    ap.add_argument("--xla-isa", default="", help="with --app jax: XLA's --xla_cpu_max_isa")
+    ap.add_argument("--save-trajectory", default=None, metavar="OUT")
+    ap.add_argument("--against", nargs="*", default=[], metavar="TRAJ")
     args = ap.parse_args()
     root = os.path.join(args.cache, f"{args.frames}", "07")
     t0 = time.perf_counter()
@@ -65,8 +81,13 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as out_dir:
         t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "legoslam_tpu_torch.apps.run_kitti", "--dataset_dir", root,
-                               "--out_dir", out_dir, "--log_every", "1"], capture_output=True, text=True, cwd=REPO)
+        cmd, env = [sys.executable, "-m", "legoslam_tpu_torch.apps.run_kitti", "--device", args.device], None
+        if args.app == "jax":
+            flags = os.environ.get("XLA_FLAGS", "") + (f" --xla_cpu_max_isa={args.xla_isa}" if args.xla_isa else "")
+            cmd, env = [sys.executable, "apps/run_kitti.py"], {**os.environ, "JAX_PLATFORMS": "cpu",
+                                                             "XLA_FLAGS": flags.strip()}
+        proc = subprocess.run(cmd + ["--dataset_dir", root, "--out_dir", out_dir, "--log_every", "1"],
+                              capture_output=True, text=True, cwd=REPO, env=env)
         run_s = time.perf_counter() - t0
         print("\n".join(line for line in proc.stderr.splitlines() if "legoslam.app]" in line or "VO:" in line),
               flush=True)
@@ -77,6 +98,22 @@ def main() -> int:
             print(proc.stderr[-4000:])
             return proc.returncode
         est = np.loadtxt(os.path.join(out_dir, "trajectory_kitti.txt")).reshape(-1, 3, 4)
+        if args.save_trajectory:
+            shutil.copyfile(os.path.join(out_dir, "trajectory_kitti.txt"), args.save_trajectory)
+    for path in args.against:
+        other = np.loadtxt(path).reshape(-1, 3, 4)
+        gap = np.linalg.norm(est[:, :, 3] - other[:, :, 3], axis=1)
+        firsts = {bar: int(np.argmax(gap > bar)) if (gap > bar).any() else None for bar in (0.05, 0.1, 0.2)}
+
+        def steps(T):
+            R, t = T[:, :, :3], T[:, :, 3]
+            return np.einsum("nji,nj->ni", R[:-1], t[1:] - t[:-1])  # frame k+1's position in frame k's camera
+
+        step_gap = np.linalg.norm(steps(est) - steps(other), axis=1)
+        print(f"soak against {path}: largest position distance per 50 frames "
+              f"{[round(float(gap[i:i + 50].max()), 4) for i in range(0, len(gap), 50)]}; first frame past "
+              f"0.05 / 0.1 / 0.2 m: {firsts[0.05]} / {firsts[0.1]} / {firsts[0.2]}; frame-to-frame motion apart by "
+              f"{float(step_gap.max()):.4f} m at most (frame {int(np.argmax(step_gap))})", flush=True)
     gt = chip_smoke.soak_trajectory()[: args.frames]
     pos, gt_pos = est[:, :, 3], gt[:, :3, 3]
     path = float(np.linalg.norm(np.diff(gt_pos, axis=0), axis=1).sum())
@@ -91,7 +128,9 @@ def main() -> int:
           f"{100.0 * np.linalg.norm(pos[k - 1] - gt_pos[k - 1]) / path_in:.4f} m per 100 m", flush=True)
     print(f"soak: {len(est)} frames in {run_s:.1f} s (the command line, start-up included), path {path:.1f} m, "
           f"ATE {ate:.4f} m (unaligned, as the JAX soak), final error {final:.4f} m, drift {drift:.4f} m per "
-          f"100 m (bar {DRIFT_BAR}) on {smi or 'a host without nvidia-smi'}", flush=True)
+          f"100 m (bar {DRIFT_BAR}); {args.app} on "
+          f"{smi if args.app == 'port' and args.device != 'cpu' else 'the CPU'}"
+          f"{f', --xla_cpu_max_isa={args.xla_isa}' if args.xla_isa else ''}", flush=True)
     return 0 if len(est) == args.frames and drift < DRIFT_BAR else 1
 
 

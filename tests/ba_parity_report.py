@@ -1,6 +1,7 @@
 """The numbers behind PERF.md's window-BA parity findings, on the CPU.
 
-    JAX_PLATFORMS=cpu python -m tests.ba_parity_report [--bench-world | --only-bench-world | --loop-records FILE]
+    JAX_PLATFORMS=cpu python -m tests.ba_parity_report [--bench-world | --only-bench-world | --loop-records FILE
+                                                        | --isa-spread]
 
 Not a test (pytest does not collect it); it runs what the parity tests
 check and prints the values beside their bars:
@@ -24,12 +25,29 @@ check and prints the values beside their bars:
    every closure of each beside the card's, with the measured loop
    transform's distance from the ground truth's (--save-pair OUT writes
    the two records of the card's worst closure:
-   tests/data/loop_pair_tail80.npz was made so).
+   tests/data/loop_pair_tail80.npz was made so);
+5. with --isa-spread: the reference's own spread across XLA's CPU
+   instruction sets (`--xla_cpu_max_isa` unset, AVX2, SSE4_2; each in a
+   process of its own, about a minute each), on what the parity tests
+   compare: the 14-frame corridor with BA inline, the tiny-window run with
+   the prior, one `ba_step` per LM strategy and `solve_window`'s
+   information on shared maps (the unset setting's), and the hook run of
+   tests/test_torch_loop.py; beside it the port (on the CPU, which no such
+   flag moves) against each setting.  The first frame at which the settings
+   part and what parts there (the window's poses relative to its oldest
+   keyframe, or a count) are printed first.  The parity tests' bars are set
+   from these numbers.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
+import os
+import pickle
+import subprocess
+import sys
+import tempfile
 
 import numpy as np
 
@@ -42,7 +60,7 @@ from legoslam_tpu_torch.utils import evaluation
 from legoslam_tpu_torch.utils.config import Config
 from tests import test_torch_backend as tb
 from tests import test_torch_vo as tv
-from tests.torch_parity import to_numpy
+from tests.torch_parity import step_gap, to_numpy, window_gap
 
 
 def corridor() -> None:
@@ -174,6 +192,194 @@ def loop_records(path: str, save_pair: str = None) -> None:
         print(f"  {name}: closed {closed}, stats {lc.stats}")
 
 
+ISAS = ("", "AVX2", "SSE4_2")  # "": XLA's own choice for the host
+
+
+def _hook_closers():
+    from tests import test_torch_loop as tl
+
+    return {"plain": tl._StubCloser, "corrected": lambda: tl._FixedCorrection(7, tl._yaw_pose(4.0, [0.3, -0.1, 0.5]))}
+
+
+def _isa_runs(out: str) -> None:
+    """The reference's runs for --isa-spread under this process's XLA_FLAGS,
+    and the maps the map-level tests start from, pickled to `out`."""
+    from tests import test_torch_loop as tl
+    from tests import test_torch_marg as tm
+
+    res = {}
+    r = tv.run_reference_inline()
+    res["corridor"] = {k: r[k] for k in ("statuses", "kf", "T_wc", "final_window", "ba_chi")}
+    r = tm.run_reference_tiny()
+    res["tiny"] = {k: r[k] for k in ("statuses", "kf", "T_wc", "final_window", "final_marg")}
+    res["maps"] = {"window": tb.reference_maps()["maps"]["window"], "carry5": r["carries"][5]["wmap"]}
+    res["hook"] = {name: tl.reference_hook_run(make()) for name, make in _hook_closers().items()}
+    with open(out, "wb") as f:
+        pickle.dump(res, f)
+
+
+def _map_solves(maps, jax_side: bool):
+    """One `ba_step` per LM strategy on tests/test_torch_backend.py's noisy
+    window map, and `solve_window`'s information on tests/test_torch_marg.py's
+    map after frame 5: by the reference (`jax_side`) or the port."""
+    from legoslam_tpu.pipeline.dataset import SyntheticPlanesDataset as JDataset
+    from legoslam_tpu.utils.config import Config as JConfig
+    from legoslam_tpu_torch.pipeline.dataset import SyntheticPlanesDataset as TDataset
+    from tests import test_torch_marg as tm
+
+    rig = (JDataset if jax_side else TDataset)(n_frames=1, shape=(160, 240), focal=260.0, baseline=0.54).rig
+    noisy = tb._noisy(maps["window"])
+    out = {}
+    for strategy in ("default", "strategy1"):
+        if jax_side:
+            m, st = j_backend.ba_step(tb.j_frontend.FrontendConfig.from_config(JConfig(tb.CONFIG)), rig,
+                                      tb._jtree(tb.JWorldMap, noisy), j_backend.BAConfig(strategy=strategy, trace=True))
+        else:
+            m, st = backend.ba_step(tb.frontend.FrontendConfig.from_config(Config(tb.CONFIG)), rig,
+                                    state.worldmap_from_numpy(noisy), backend.BAConfig(strategy=strategy, trace=True))
+        out[strategy] = {"kf_pose": to_numpy(m.kf_pose), "kf_valid": noisy["kf_valid"], "kf_id": noisy["kf_id"],
+                         "chi": float(st.chi)}
+    if jax_side:
+        res = j_backend.solve_window(tm.j_frontend.FrontendConfig.from_config(JConfig(tm.TINY)), rig,
+                                     tb._jtree(tb.JWorldMap, maps["carry5"]),
+                                     j_backend.BAConfig(assembly_precision="f32"))
+    else:
+        res = backend.solve_window(tm.frontend.FrontendConfig.from_config(Config(tm.TINY)), rig,
+                                   state.worldmap_from_numpy(maps["carry5"]))
+    out["info"] = {"S": to_numpy(res.info[0]), "b": to_numpy(res.info[1]), "chi": float(res.stats.chi)}
+    return out
+
+
+def _isa_map_solves(out: str, runs: str) -> None:
+    """The reference's `_map_solves` under this process's XLA_FLAGS on every
+    setting's maps (`runs`: the pickled `_isa_runs` outputs, by setting)."""
+    with open(runs, "rb") as f:
+        maps = pickle.load(f)
+    with open(out, "wb") as f:
+        pickle.dump({name: _map_solves(m, True) for name, m in maps.items()}, f)
+
+
+def _port_runs():
+    from legoslam_tpu_torch.pipeline.dataset import SyntheticPlanesDataset as TDataset
+    from tests import test_torch_loop as tl
+    from tests import test_torch_marg as tm
+
+    port = {}
+    for name, conf in (("corridor", tv.OVERRIDES), ("tiny", tm.TINY)):
+        vo = VisualOdometry(config=Config(conf), dataset=tv._dataset(TDataset), device="cpu")
+        vo.init()
+        vo.run()
+        window = {k: to_numpy(getattr(vo.carry.wmap, k)) for k in ("kf_pose", "kf_valid", "kf_id")}
+        port[name] = {"statuses": vo.statuses(), "kf": vo.keyframe_flags(), "T_wc": vo.trajectory_T_wc(),
+                      "final_window": window,
+                      "final_marg": {k: to_numpy(v) for k, v in vars(vo.carry.wmap.marg).items()}}
+    port["hook"] = {}
+    for name, make in _hook_closers().items():
+        vo = VisualOdometry(config=Config(tl.HOOK_CONFIG), dataset=tl._hook_dataset(TDataset), device="cpu")
+        vo.init()
+        vo.loop_closer = make()
+        vo.run()
+        port["hook"][name] = (vo.trajectory_T_cw(), vo.keyframe_flags())
+    return port
+
+
+def _run_gaps(a, b):
+    """What the parity tests of whole runs compare, between two runs `a` and
+    `b` (two reference settings, or the port and a setting)."""
+    from legoslam_tpu_torch.utils import evaluation as ev
+
+    g = {}
+    for name in ("corridor", "tiny"):
+        x, y = a[name], b[name]
+        g[f"{name}: statuses, keyframes equal"] = float((x["statuses"] == y["statuses"]).all()
+                                                        and (x["kf"] == y["kf"]).all())
+        g[f"{name}: max |d position| (m)"] = float(np.abs(x["T_wc"][:, :3, 3] - y["T_wc"][:, :3, 3]).max())
+        g[f"{name}: rigidly aligned distance (m)"] = ev.ate_rmse(x["T_wc"][:, :3, 3], y["T_wc"][:, :3, 3])
+        g[f"{name}: final window, relative poses"] = window_gap(x["final_window"], y["final_window"])
+    g["corridor: frame-to-frame motion, non-keyframe steps (m)"] = step_gap(
+        a["corridor"]["T_wc"], b["corridor"]["T_wc"], a["corridor"]["kf"])
+    H = [np.asarray(r["tiny"]["final_marg"]["prior_J"], np.float64) for r in (a, b)]
+    H = [J.T @ J for J in H]
+    g["tiny: final prior H, of its largest entry"] = float(np.abs(H[0] - H[1]).max() / np.abs(H[1]).max())
+    (Ta, kfa), (Tb, _) = a["hook"]["corrected"], b["hook"]["corrected"]
+    g["hook corrected: max |d T_cw|"] = float(np.abs(Ta - Tb).max())
+    g["hook corrected: frame-to-frame motion, non-keyframe steps (m)"] = step_gap(
+        np.linalg.inv(Ta), np.linalg.inv(Tb), kfa)
+    for name, r in (("a", a), ("b", b)):  # each package's own timing: frame 9 corrected, frame 8 not
+        (T, _), (P, _) = r["hook"]["corrected"], r["hook"]["plain"]
+        G = _hook_closers()["corrected"]().G
+        g[f"hook {name}: frame 8 against its plain run"] = float(np.abs(T[8] - P[8]).max())
+        g[f"hook {name}: frame 9 against its plain run, corrected"] = float(
+            np.abs(T[9] - P[9] @ np.linalg.inv(G)).max())
+    return g
+
+
+def _solve_gaps(a, b):
+    g = {}
+    for strategy in ("default", "strategy1"):
+        x, y = a[strategy], b[strategy]
+        g[f"ba_step {strategy}: relative poses"] = window_gap(x, y)
+        g[f"ba_step {strategy}: chi, relative"] = abs(x["chi"] - y["chi"]) / abs(y["chi"])
+    for k in ("S", "b"):
+        x, y = a["info"][k], b["info"][k]
+        g[f"solve_window info {k}, of its largest entry"] = float(np.abs(x - y).max() / np.abs(y).max())
+    return g
+
+
+def _table(title, pairs, versus) -> None:
+    print(title)
+    names = list(next(iter(pairs.values())))
+    print(f"  {'quantity':60s} " + " ".join(f"{k:>14s}" for k in [*pairs, "ref spread", *versus]))
+    for n in names:
+        spread = max(p[n] for p in pairs.values())
+        cells = [p[n] for p in pairs.values()] + [spread] + [v[n] for v in versus.values()]
+        print(f"  {n:60s} " + " ".join(f"{c:14.6f}" for c in cells))
+
+
+def isa_spread() -> None:
+    names = [isa or "unset" for isa in ISAS]
+
+    def run(isa, *args):
+        flags = os.environ.get("XLA_FLAGS", "") + (f" --xla_cpu_max_isa={isa}" if isa else "")
+        subprocess.run([sys.executable, "-m", "tests.ba_parity_report", *args], check=True,
+                       env={**os.environ, "XLA_FLAGS": flags.strip(), "JAX_PLATFORMS": "cpu"})
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def load(path):
+            with open(os.path.join(tmp, path), "rb") as f:
+                return pickle.load(f)
+
+        for isa, name in zip(ISAS, names):
+            run(isa, "--isa-runs", os.path.join(tmp, f"runs-{name}.pkl"))
+        runs = {name: load(f"runs-{name}.pkl") for name in names}
+        with open(os.path.join(tmp, "maps.pkl"), "wb") as f:
+            pickle.dump({name: r["maps"] for name, r in runs.items()}, f)
+        for isa, name in zip(ISAS, names):
+            run(isa, "--isa-map-solves", os.path.join(tmp, f"solves-{name}.pkl"), os.path.join(tmp, "maps.pkl"))
+        solves = {name: load(f"solves-{name}.pkl") for name in names}  # [setting][map's setting]
+
+    T = [r["corridor"]["T_wc"] for r in runs.values()]
+    d = np.max([np.abs(a[:, :3, 3] - b[:, :3, 3]).max(-1) for a, b in itertools.combinations(T, 2)], axis=0)
+    print(f"corridor: largest |d position| between settings per frame (m): {np.array2string(d, precision=5)}")
+    print(f"corridor: the settings first part (> 1e-3 m) at frame {int(np.argmax(d > 1e-3))}; keyframe flags "
+          f"{runs['unset']['corridor']['kf'].astype(int).tolist()}")
+    for name in names[1:]:
+        a, b = runs["unset"], runs[name]
+        k = 1
+        print(f"corridor, frame {k}'s window BA, unset against {name}: chi {a['corridor']['ba_chi'][k]:.5f} / "
+              f"{b['corridor']['ba_chi'][k]:.5f}")
+
+    port = _port_runs()
+    _table("whole runs (the port on the CPU against each setting in the last columns):",
+           {f"{a}/{b}": _run_gaps(runs[a], runs[b]) for a, b in itertools.combinations(names, 2)},
+           {f"port/{a}": _run_gaps(port, runs[a]) for a in names})
+    for m in names:
+        port_m = _map_solves(runs[m]["maps"], False)
+        _table(f"map-level solves on the {m} setting's maps:",
+               {f"{a}/{b}": _solve_gaps(solves[a][m], solves[b][m]) for a, b in itertools.combinations(names, 2)},
+               {f"port/{a}": _solve_gaps(port_m, solves[a][m]) for a in names})
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bench-world", action="store_true")
@@ -181,7 +387,19 @@ def main() -> None:
     ap.add_argument("--save-pair", default=None, metavar="OUT",
                     help="with --loop-records: write the two records of the card's worst closure, for tests/data")
     ap.add_argument("--only-bench-world", action="store_true", help="skip the corridor and gauge reports")
+    ap.add_argument("--isa-spread", action="store_true")
+    ap.add_argument("--isa-runs", default=None, metavar="OUT", help=argparse.SUPPRESS)
+    ap.add_argument("--isa-map-solves", nargs=2, default=None, metavar=("OUT", "MAPS"), help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.isa_runs:
+        _isa_runs(args.isa_runs)
+        return
+    if args.isa_map_solves:
+        _isa_map_solves(*args.isa_map_solves)
+        return
+    if args.isa_spread:
+        isa_spread()
+        return
     if args.loop_records:
         loop_records(args.loop_records, args.save_pair)
         return

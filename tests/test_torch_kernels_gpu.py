@@ -21,6 +21,10 @@ against the same call on a CPU copy of the map with chip_smoke.py's bars,
 and two card runs on one map must give the same bits (the BA sums run in
 an order fixed by the graph, solver/schur.py).
 So are loop verification (`LoopCloser._verify`) and `marginalize`.
+
+`process_chunk` on the card is its stepwise run bit for bit; the async
+backend's side stream must keep its snapshot intact until the merge; the
+device pose graph gives the same bits twice and agrees with the CPU.
 """
 
 import warnings
@@ -421,3 +425,149 @@ def test_marginalize_card_matches_cpu(cuda, zero_rows):
     assert float(((f_g.sqrt_J.T @ f_g.sqrt_J).cpu() - f_c.sqrt_J.T @ f_c.sqrt_J).abs().max()) <= 1e-4 * scale
     jte_g, jte_c = (f_g.sqrt_J.T @ f_g.err).cpu(), f_c.sqrt_J.T @ f_c.err
     assert float((jte_g - jte_c).abs().max()) <= 1e-3 * float(jte_c.abs().max())
+
+
+def _third_ba_map(monkeypatch):
+    """The map the default path hands to its third BA (as above), with its
+    configuration and rig, on the card."""
+    from legoslam_tpu_torch.pipeline import backend
+    from legoslam_tpu_torch.pipeline.dataset import SyntheticPlanesDataset
+    from legoslam_tpu_torch.pipeline.visual_odometry import VisualOdometry
+    from legoslam_tpu_torch.utils.config import Config
+
+    calls = []
+    ba_step = backend.ba_step
+    monkeypatch.setattr(backend, "ba_step", lambda *a, **kw: (calls.append(a), ba_step(*a, **kw))[1])
+    ds = SyntheticPlanesDataset(n_frames=5, shape=(160, 240), focal=260.0, baseline=0.54, speed=0.25)
+    config = Config({"stereo_depth_inferior_limit": 2.0, "stereo_depth_superior_limit": 50.0,
+                     "detect_mask_half": 6, "gftt_min_distance": 6, "max_keyframe_gap": 2})
+    vo = VisualOdometry(config=config, dataset=ds)
+    assert vo.init()
+    while vo.step():
+        pass
+    monkeypatch.setattr(backend, "ba_step", ba_step)
+    return calls[-1]
+
+
+def test_chunk_equals_stepwise_on_the_card(cuda):
+    """`process_chunk` on frames already on the card is `process_frame` in a
+    loop: the same bits, and the kernels launched once per tracking frame."""
+    from legoslam_tpu_torch.pipeline import frontend
+    from legoslam_tpu_torch.pipeline.dataset import SyntheticPlanesDataset
+    from legoslam_tpu_torch.pipeline.visual_odometry import initial_carry, process_chunk, process_frame
+    from legoslam_tpu_torch.utils.config import Config
+
+    ds = SyntheticPlanesDataset(n_frames=10, shape=(160, 240), focal=260.0, baseline=0.54, speed=0.25)
+    ds.init()
+    frames = [ds.next_frame() for _ in range(10)]
+    il = torch.from_numpy(np.stack([f.left for f in frames])).to(cuda)
+    ir = torch.from_numpy(np.stack([f.right for f in frames])).to(cuda)
+    cfg = frontend.FrontendConfig.from_config(Config({"stereo_depth_inferior_limit": 2.0,
+                                                      "stereo_depth_superior_limit": 50.0,
+                                                      "detect_mask_half": 6, "gftt_min_distance": 6}))
+    rig = ds.rig.to(cuda)
+    carry = initial_carry(cfg, il.shape[1:], torch.float32, cuda)
+    outs = []
+    for k in range(10):
+        carry, out = process_frame(cfg, rig, carry, il[k], ir[k], k)
+        outs.append(out)
+    n_klt, n_pose = klt_k.klt_pyramid_anchored_kernel.launches, pose_k.estimate_pose_kernel.launches
+    carry2, chunk = process_chunk(cfg, rig, initial_carry(cfg, il.shape[1:], torch.float32, cuda), il, ir, range(10))
+    tracking = sum(o.status != 0 and k > 0 for k, o in enumerate(outs))
+    assert klt_k.klt_pyramid_anchored_kernel.launches - n_klt == tracking
+    assert pose_k.estimate_pose_kernel.launches - n_pose == tracking
+    assert torch.equal(chunk.T_cw, torch.stack([o.T_cw for o in outs]))
+    assert chunk.status.tolist() == [o.status for o in outs] and chunk.T_cw.is_cuda
+    assert torch.equal(carry2.wmap.kf_pose, carry.wmap.kf_pose) and torch.equal(carry2.wmap.lm_pos, carry.wmap.lm_pos)
+
+
+def test_async_snapshot_survives_until_the_merge(cuda, monkeypatch):
+    """A solve on the side stream reads its snapshot while the main stream
+    frees the caller's copy and writes garbage into freshly allocated
+    memory: the merged map is bit-equal to the synchronous `ba_step` of the
+    same map (the snapshot was neither freed nor overwritten early), and
+    `poll` does not merge before the side stream is done."""
+    from legoslam_tpu_torch.pipeline import async_backend, backend
+
+    cfg, rig, wmap, ba_cfg = _third_ba_map(monkeypatch)
+    m_sync, _ = backend.ba_step(cfg, rig, wmap, ba_cfg)
+
+    class Slow(async_backend.AsyncBackend):
+        def _solve(self, snap):
+            torch.cuda._sleep(200_000_000)  # ~0.1 s of device time on the side stream first
+            return super()._solve(snap)
+
+    ab = Slow(cfg, rig, ba_cfg, dispatch_every=1, device=cuda)
+    copy = wmap.map(lambda x: x.clone() if torch.is_tensor(x) else x.map(torch.clone))
+    ab.observe()
+    ab.dispatch(copy)
+    del copy
+    junk = [torch.full((1 << 20,), float("nan"), device=cuda) for _ in range(64)]
+    merged = copy_or_none = None
+    for _ in range(10_000):
+        merged = ab.poll(wmap)
+        if merged is not wmap:
+            break
+        copy_or_none = torch.empty(1 << 16, device=cuda).fill_(7.0)
+    else:
+        merged = ab.flush(wmap)
+    del junk, copy_or_none
+    torch.cuda.synchronize()
+    assert ab.stats == {"dispatched": 1, "merged": 1, "skipped": 0}
+    for name in ("lm_pos", "lm_obs", "kf_pose", "kf_obs_left", "kf_obs_right"):
+        assert torch.equal(getattr(merged, name), getattr(m_sync, name)), name
+
+
+def test_async_vo_on_the_card(cuda):
+    """`ba_mode: async` with "auto" on one card: the side stream of the same
+    device; every solve merged, every frame TRACKING_GOOD."""
+    from legoslam_tpu_torch.pipeline.dataset import SyntheticPlanesDataset
+    from legoslam_tpu_torch.pipeline.visual_odometry import VisualOdometry
+    from legoslam_tpu_torch.utils.config import Config
+
+    ds = SyntheticPlanesDataset(n_frames=14, shape=(160, 240), focal=260.0, baseline=0.54, speed=0.25)
+    config = Config({"stereo_depth_inferior_limit": 2.0, "stereo_depth_superior_limit": 50.0,
+                     "detect_mask_half": 6, "gftt_min_distance": 6, "ba_mode": "async"})
+    vo = VisualOdometry(config=config, dataset=ds)
+    assert vo.init()
+    ab = vo.async_backend
+    assert (ab.ba_device is None) == (torch.cuda.device_count() == 1) and ab._stream is not None
+    vo.run()
+    assert (vo.statuses() == 1).all()
+    assert ab.stats["merged"] == ab.stats["dispatched"] >= 1 and ab.pending is None
+
+
+def test_pose_graph_is_reproducible_and_matches_cpu(cuda):
+    """`pose_graph.optimize` on the card twice gives the same bits (its sums
+    in a fixed order), and agrees with the CPU: chi within 1e-4 relative,
+    poses within 1e-4, both run to convergence (the default stop rule, a chi
+    change under 1e-5, ends before 1e-4 of a chi of ~5e-3 is resolved)."""
+    from legoslam_tpu_torch.solver import lm, pose_graph
+
+    cfg = lm.LMConfig(iterations=50, diff_chi_threshold=1e-10)
+
+    rng = np.random.default_rng(0)
+    n = 40
+    step = se3.se3_exp(torch.tensor([0.0, 0, 0.5, 0, 2 * np.pi / n, 0]))
+    gt = [torch.eye(4)]
+    for _ in range(1, n):
+        gt.append(gt[-1] @ step)
+    e_i, e_j, meas, est = [], [], [], [gt[0]]
+    for i in range(1, n):
+        rel = se3.se3_exp(torch.from_numpy(rng.normal(scale=0.02, size=6).astype(np.float32))) @ (
+            gt[i] @ torch.linalg.inv(gt[i - 1]))
+        e_i.append(i), e_j.append(i - 1), meas.append(rel), est.append(rel @ est[-1])
+    e_i.append(n - 1), e_j.append(0), meas.append(gt[n - 1] @ torch.linalg.inv(gt[0]))
+    E = len(e_i)
+    fixed = torch.zeros(n, dtype=torch.bool)
+    fixed[0] = True
+    graph = pose_graph.PoseGraph(e_i=torch.tensor(e_i), e_j=torch.tensor(e_j), T_meas=torch.stack(meas),
+                                 weight=torch.tensor([1.0] * (n - 1) + [100.0] * (E - n + 1)),
+                                 valid=torch.ones(E, dtype=torch.bool), fixed=fixed)
+    P0 = torch.stack(est)
+    on_card = pose_graph.PoseGraph(*(x.to(cuda) if x is not None else None for x in graph))
+    (P1, r1), (P2, r2) = (pose_graph.optimize(P0.to(cuda), on_card, cfg=cfg) for _ in range(2))
+    Pc, rc = pose_graph.optimize(P0, graph, cfg=cfg)
+    assert torch.equal(P1, P2) and torch.equal(r1.chi, r2.chi)
+    np.testing.assert_allclose(float(r1.chi), float(rc.chi), rtol=1e-4, atol=1e-7)
+    np.testing.assert_allclose(P1.cpu().numpy(), Pc.numpy(), rtol=0, atol=1e-4)

@@ -55,7 +55,7 @@ from legoslam_tpu_torch.utils import evaluation
 from legoslam_tpu_torch.utils.config import Config
 from tests.test_loop_closure import FOCAL, SHAPE, _grid_features, _make_record, loop_trajectory
 from tests.test_torch_vo import OVERRIDES, _dataset
-from tests.torch_parity import to_numpy, tree_to_numpy
+from tests.torch_parity import step_gap, to_numpy, tree_to_numpy
 
 
 def _yaw_pose(yaw_deg, xyz):
@@ -213,15 +213,16 @@ def test_add_keyframe_closes_like_reference(views):
     assert not lc.records and not lc.loop_edges and lc._cooldown == 0
 
 
-def test_verify_accepts_a_far_revisit_wrongly_like_reference():
-    d = np.load(os.path.join(os.path.dirname(__file__), "data", "loop_pair_tail80.npz"))
+def _pair_closers(d, upto):
+    """Both packages' closers holding tests/data's pair of records and blank
+    ones around them, up to (not including) keyframe `upto`."""
     world = dict(n_frames=1, shape=(188, 620), focal=360.0, baseline=0.54)
     jlc = j_loop.LoopCloser(JDataset(**world).rig)
     lc = loop_closure.LoopCloser(TDataset(**world).rig, device="cpu")
     i, j = int(d["i"]), int(d["j"])
     blank = np.zeros((94, 310), np.uint8)
     for closer, Record in ((jlc, j_loop.KeyframeRecord), (lc, loop_closure.KeyframeRecord)):
-        for k, T in enumerate(d["T_cw"]):
+        for k, T in enumerate(d["T_cw"][:upto]):
             w = {i: "i", j: "j"}.get(k)
             closer.records.append(Record(
                 frame_id=int(d[f"frame_id_{w}"]) if w else k, T_cw=T.copy(),
@@ -230,7 +231,14 @@ def test_verify_accepts_a_far_revisit_wrongly_like_reference():
                 uv=d[f"uv_{w}"] if w else np.zeros((256, 2), np.float32),
                 p_world=d[f"p_world_{w}"] if w else np.zeros((256, 3), np.float32),
                 n_feats=int(d[f"n_feats_{w}"]) if w else 0))
-        assert len(closer.records) == i + 1
+    return jlc, lc
+
+
+def test_verify_accepts_a_far_revisit_wrongly_like_reference():
+    d = np.load(os.path.join(os.path.dirname(__file__), "data", "loop_pair_tail80.npz"))
+    i, j = int(d["i"]), int(d["j"])
+    jlc, lc = _pair_closers(d, i + 1)
+    assert len(jlc.records) == len(lc.records) == i + 1
     ok_r, M_r, n_r = jlc._verify(j)
     ok, M, n_in = lc._verify(j)
     assert ok and ok_r
@@ -240,6 +248,57 @@ def test_verify_accepts_a_far_revisit_wrongly_like_reference():
     M_true = d["M_true"]
     assert abs(M_true[2, 3]) > 2.0  # the revisit stands 2.1 m off along the straight
     assert np.linalg.norm(M[:3, 3] - M_true[:3, 3]) > 0.5 and np.linalg.norm(M_r[:3, 3] - M_true[:3, 3]) > 0.5
+
+
+def test_debug_dump_matches_reference(tmp_path, monkeypatch):
+    """With LEGOSLAM_LOOP_DEBUG=<path>, a closure appends the reference's
+    records to <path>: the same tags in the same order, the same payload
+    keys, NumPy arrays, and the same values (the measurement within 2e-2 m,
+    as the test above holds it).  Keyframe i of tests/data's pair is added
+    to both closers holding the records before it, with place recognition
+    pointed at keyframe j."""
+    import pickle
+
+    d = np.load(os.path.join(os.path.dirname(__file__), "data", "loop_pair_tail80.npz"))
+    i, j, n = int(d["i"]), int(d["j"]), int(d["n_feats_i"])
+    jlc, lc = _pair_closers(d, i)
+    img_full = np.repeat(np.repeat(d["img_i"].astype(np.float32), 2, axis=0), 2, axis=1)
+    dumps = {}
+    for name, closer in (("reference", jlc), ("port", lc)):
+        path = str(tmp_path / f"{name}.pkl")
+        if name == "reference":
+            monkeypatch.setattr(j_loop, "_DEBUG_PATH", path)
+        else:
+            monkeypatch.setenv("LEGOSLAM_LOOP_DEBUG", path)
+        closer._detect = lambda: [j]
+        closer.add_keyframe(int(d["frame_id_i"]), img_full, d["T_cw_obs_i"], d["uv_i"][:n] * 2.0, d["p_world_i"][:n])
+        records = []
+        with open(path, "rb") as f:
+            while True:
+                try:
+                    records.append(pickle.load(f))
+                except EOFError:
+                    break
+        dumps[name] = records
+    ref, port = dumps["reference"], dumps["port"]
+    assert [r["tag"] for r in port] == [r["tag"] for r in ref] == ["closure", "optimize"]
+    for a, b in zip(port, ref):
+        assert a.keys() == b.keys()
+    closure, jclosure = port[0], ref[0]
+    assert (closure["i"], closure["j"]) == (jclosure["i"], jclosure["j"]) == (i, j)
+    assert closure["fids"] == jclosure["fids"]
+    assert isinstance(closure["M"], np.ndarray) and isinstance(closure["pre"], np.ndarray)
+    assert np.linalg.norm(closure["M"][:3, 3] - jclosure["M"][:3, 3]) < 2e-2
+    np.testing.assert_allclose(closure["pre"], jclosure["pre"], atol=1e-6)
+    opt, jopt = port[1], ref[1]
+    assert opt["pre"] is None and jopt["pre"] is None and opt["fids"] == jopt["fids"]
+    assert isinstance(opt["post"], np.ndarray) and opt["post"].shape == jopt["post"].shape == (i + 1, 4, 4)
+    assert [(a, b) for a, b, _ in opt["loop_edges"]] == [(a, b) for a, b, _ in jopt["loop_edges"]] == [(i, j)]
+    # nothing is written without the variable
+    size = os.path.getsize(tmp_path / "port.pkl")
+    monkeypatch.delenv("LEGOSLAM_LOOP_DEBUG")
+    loop_closure._debug_dump("closure", {"i": 0})
+    assert os.path.getsize(tmp_path / "port.pkl") == size
 
 
 # --- the driver -------------------------------------------------------------------
@@ -300,6 +359,17 @@ HOOK_CONFIG = {**OVERRIDES, "use_loop_closure": True, "loop_zncc_min": 1.1}
 
 def _hook_dataset(cls):
     return cls(n_frames=HOOK_FRAMES, shape=(160, 240), focal=260.0, baseline=0.54, speed=0.25)
+
+
+def reference_hook_run(closer):
+    """The reference's `VisualOdometry` over the 12 hook frames (BA inline at
+    f32) with `closer` in place of its loop closer: (T_cw, keyframe flags)."""
+    jvo = j_vo.VisualOdometry(config=JConfig({**HOOK_CONFIG, "ba_assembly_precision": "f32"}),
+                              dataset=_hook_dataset(JDataset))
+    assert jvo.init()
+    jvo.loop_closer = closer
+    jvo.run()
+    return np.asarray(jvo.trajectory_T_cw()), np.asarray([bool(o.kf_inserted) for o in jvo.outputs])
 
 
 def test_loop_hook_registers_the_frame_after_each_keyframe():
@@ -383,15 +453,17 @@ def test_loop_correction_applied_at_the_reference_frame():
     one fixed G when frame 7 (the frame after keyframe 6) is registered.
     The reference reads that record a frame late and applies G to the carry
     after frame 8, so frame 8 is reported in the uncorrected world and frame
-    9 on in the corrected one; the port must do the same.  Every frame's
-    T_cw agrees with the reference's within 5e-2 (the BA-inline bar of
-    tests/test_torch_vo.py)."""
+    9 on in the corrected one; the port must do the same.  Each package is
+    held against its own run without the correction, and the two corrected
+    trajectories against each other as tests/test_torch_vo.py holds the
+    BA-inline runs (frame-to-frame motion out of frames without a keyframe
+    within 0.03 m): the reference's camera positions themselves move by up
+    to 0.093 m from one host to the next (`python -m tests.ba_parity_report
+    --isa-spread`)."""
     G = _yaw_pose(4.0, [0.3, -0.1, 0.5])
-    jvo = j_vo.VisualOdometry(config=JConfig({**HOOK_CONFIG, "ba_assembly_precision": "f32"}),
-                              dataset=_hook_dataset(JDataset))
-    assert jvo.init()
-    jstub = jvo.loop_closer = _FixedCorrection(7, G)
-    jvo.run()
+    jstub = _FixedCorrection(7, G)
+    T_ref, kf_ref = reference_hook_run(jstub)
+    ref_plain, _ = reference_hook_run(_StubCloser())
     runs = {}
     for name, closer in (("plain", _StubCloser()), ("corrected", _FixedCorrection(7, G))):
         vo = VisualOdometry(config=Config(HOOK_CONFIG), dataset=_hook_dataset(TDataset), device="cpu")
@@ -400,14 +472,14 @@ def test_loop_correction_applied_at_the_reference_frame():
         vo.run()
         runs[name] = vo.trajectory_T_cw()
     assert [a[0] for a in jstub.added] == [a[0] for a in closer.added] == [1, 2, 7, 11]
-    T, T_ref, plain = runs["corrected"], np.asarray(jvo.trajectory_T_cw()), runs["plain"]
-    np.testing.assert_allclose(T, T_ref, atol=5e-2)
+    T, plain = runs["corrected"], runs["plain"]
+    assert step_gap(np.linalg.inv(T), np.linalg.inv(T_ref), kf_ref) < 0.03
     # frame 8: the uncorrected world, bit for bit; frame 9: T_cw G^-1 of the uncorrected run
     np.testing.assert_array_equal(T[:9], plain[:9])
     G_inv = np.linalg.inv(G)
-    for T_run in (T, T_ref):
-        assert np.abs(T_run[8] - plain[8]).max() < 5e-2 < np.abs(T_run[8] @ G - plain[8]).max()
-        assert np.abs(T_run[9] - plain[9] @ G_inv).max() < 5e-2 < np.abs(T_run[9] - plain[9]).max()
+    for T_run, P in ((T, plain), (T_ref, ref_plain)):
+        assert np.abs(T_run[8] - P[8]).max() < 5e-2 < np.abs(T_run[8] @ G - P[8]).max()
+        assert np.abs(T_run[9] - P[9] @ G_inv).max() < 5e-2 < np.abs(T_run[9] - P[9]).max()
 
 
 @pytest.mark.slow

@@ -42,7 +42,7 @@ from legoslam_tpu_torch.utils import evaluation
 from legoslam_tpu_torch.utils.config import Config
 from tests.test_torch_backend import _jtree
 from tests.test_torch_vo import N_FRAMES, OVERRIDES, _dataset
-from tests.torch_parity import j, t, to_numpy, tree_to_numpy
+from tests.torch_parity import j, t, to_numpy, tree_to_numpy, window_gap
 
 TINY = {**OVERRIDES, "keyframe_window_capacity": 5, "num_active_keyframes": 4, "max_keyframe_gap": 1,
         "use_marg_prior": True}
@@ -135,6 +135,11 @@ def test_prior_effect_on_a_solve():
 
 @pytest.fixture(scope="module")
 def ref():
+    return run_reference_tiny()
+
+
+def run_reference_tiny():
+    """The reference's tiny-window run (see the module docstring)."""
     ds = _dataset(JDataset)
     vo = JVisualOdometry(config=JConfig({**TINY, "ba_assembly_precision": "f32"}), dataset=ds)
     assert vo.ba_mode == "inline" and vo.init()
@@ -146,6 +151,7 @@ def ref():
     return {
         "carries": carries,
         "final_marg": tree_to_numpy(vo.carry.wmap.marg),
+        "final_window": {k: np.asarray(getattr(vo.carry.wmap, k)) for k in ("kf_pose", "kf_valid", "kf_id")},
         "statuses": vo.statuses(),
         "kf": np.asarray([bool(o.kf_inserted) for o in vo.outputs]),
         "T_wc": vo.trajectory_T_wc(),
@@ -246,9 +252,13 @@ def test_solve_window_info_with_prior(ref):
     np.testing.assert_array_equal(to_numpy(kf_id), np.asarray(jkf_id))
     # Each package evaluates the information at its own optimum, 10 LM
     # iterations from the same map: S within 5% of its largest entry
-    # (measured 1.8%), b within 5%.
+    # (measured 1.8%), b within 10%.  b is the gradient at a point LM has
+    # not quite reached: the reference's own runs of one map under XLA's CPU
+    # instruction sets part by up to 6.93% of its largest entry, the port by
+    # up to 6.42% on the map an AVX2 run of the reference makes
+    # (`python -m tests.ba_parity_report --isa-spread`).
     _rel(to_numpy(S), jS, 5e-2, "info S")
-    _rel(to_numpy(b), jb, 5e-2, "info b")
+    _rel(to_numpy(b), jb, 0.1, "info b")
     assert torch.equal(T, res.poses)
     m = backend.merge_ba_result(state.worldmap_from_numpy(d), res)
     assert torch.equal(m.marg.info_S, S) and torch.equal(m.marg.info_b, b)
@@ -263,6 +273,14 @@ def test_solve_window_info_with_prior(ref):
 
 
 def test_tiny_window_run_matches_reference(ref):
+    """Statuses, keyframe flags and `prior_kf_id` equal, the final prior's
+    H within 10%, both ATE < 0.15 m; and the trajectory where the reference
+    keeps it from one host to the next.  Under XLA's CPU instruction sets
+    (`--xla_cpu_max_isa` unset, AVX2, SSE4_2) the reference's own runs part
+    by up to 0.075192 m after a rigid alignment and by 0.019000 in the final
+    window's poses relative to its oldest keyframe (`python -m
+    tests.ba_parity_report --isa-spread`; the prior holds the gauge only in
+    part); the bars are 0.15 m and 0.035, under twice those spreads."""
     vo = VisualOdometry(config=Config(TINY), dataset=_dataset(TDataset), device="cpu")
     assert vo.init()
     vo.run()
@@ -276,8 +294,11 @@ def test_tiny_window_run_matches_reference(ref):
     # Ten evictions on, each prior built from the run's own BA optimum:
     # within 10% of the largest entry (measured 5.5%).
     _rel(_prior_H(mg), _prior_H(jmg), 0.1, "final prior H")
+    # The trajectory, in what the gauge cannot move (see the docstring).
+    final = {k: to_numpy(getattr(vo.carry.wmap, k)) for k in ("kf_pose", "kf_valid", "kf_id")}
+    assert window_gap(final, ref["final_window"]) < 0.035
     T_wc = vo.trajectory_T_wc()
-    assert evaluation.ate_rmse(T_wc[:, :3, 3], ref["T_wc"][:, :3, 3]) < 5e-2  # rigidly aligned
+    assert evaluation.ate_rmse(T_wc[:, :3, 3], ref["T_wc"][:, :3, 3]) < 0.15  # rigidly aligned
     gt = ref["gt_T_wc"][:, :3, 3]
     assert evaluation.ate_rmse(T_wc[:, :3, 3], gt) < 0.15
     assert evaluation.ate_rmse(ref["T_wc"][:, :3, 3], gt) < 0.15

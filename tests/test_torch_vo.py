@@ -12,10 +12,24 @@ checks, so the reference step compiles once:
 
 A second reference run, with window BA inline (the default) at
 `ba_assembly_precision: f32`, holds the port's default path: statuses and
-keyframe flags equal on every frame, camera positions within 5e-2 m (the
-bar the reference holds its own two schedules to, test_pipeline.py:191),
-both ATE < 0.15 m (test_pipeline.py:145), a finite BA chi on every
-keyframe frame.
+keyframe flags equal on every frame, both ATE < 0.15 m
+(test_pipeline.py:145), a finite BA chi on every keyframe frame, and the
+trajectory in what the window's free gauge cannot move.  The reference
+itself does not hold camera positions from one host to the next: under
+XLA's CPU instruction sets (`--xla_cpu_max_isa` unset, AVX2, SSE4_2) its
+runs agree to 1e-4 in frame 1's window BA relative to the oldest keyframe,
+and in chi to 1e-3, while the window's rigid placement moves by up to
+0.0912 m, and every later frame with it (`python -m tests.ba_parity_report
+--isa-spread`).  So the trajectories are held by the frame-to-frame motion
+out of frames without a keyframe (the reference's spread 0.016014 m, bar
+0.03), their distance after a rigid alignment (spread 0.028309 m, bar
+0.05) and the final window's poses relative to its oldest keyframe
+(spread 0.002642, bar 5e-3); each bar is under twice the spread.
+
+`process_chunk` is held bit for bit against the port's own stepwise run,
+and against the reference's `process_chunk` on tests/test_pipeline.py:151's
+10 frames (the first 10 of the same corridor and configuration) as the
+inline run is.
 """
 
 import logging
@@ -30,12 +44,14 @@ from legoslam_tpu.utils import evaluation as j_eval
 from legoslam_tpu.utils.config import Config as JConfig
 from legoslam_tpu_torch.pipeline import frontend, state
 from legoslam_tpu_torch.pipeline.dataset import SyntheticPlanesDataset as TDataset
-from legoslam_tpu_torch.pipeline.visual_odometry import FrontendStatus, VisualOdometry, process_frame
+from legoslam_tpu_torch.pipeline.visual_odometry import (FrontendStatus, VisualOdometry, initial_carry,
+                                                         process_chunk, process_frame)
 from legoslam_tpu_torch.utils import evaluation
 from legoslam_tpu_torch.utils.config import Config
-from tests.torch_parity import agreement, assert_close, t, to_numpy, tree_to_numpy
+from tests.torch_parity import agreement, assert_close, step_gap, t, to_numpy, tree_to_numpy, window_gap
 
 N_FRAMES = 14
+CHUNK = 10    # frames of the chunk tests (tests/test_pipeline.py:151)
 HANDOVER = 7  # frames the reference runs before its carry is handed over
 OVERRIDES = {
     # tests/test_pipeline.py SMALL_CAPS and SCENE_OVERRIDES
@@ -148,6 +164,7 @@ def run_reference_inline():
         "statuses": vo.statuses(),
         "kf": np.asarray([bool(o.kf_inserted) for o in vo.outputs]),
         "ba_chi": np.asarray([float(o.ba_chi) for o in vo.outputs]),
+        "final_window": {k: np.asarray(getattr(vo.carry.wmap, k)) for k in ("kf_pose", "kf_valid", "kf_id")},
         "T_cw": vo.trajectory_T_cw(),
         "T_wc": vo.trajectory_T_wc(),
         "gt_T_wc": ds.gt_T_wc,
@@ -168,10 +185,74 @@ def test_whole_slice_ba_inline(reference_inline):
     assert np.isfinite(ref["ba_chi"][kf]).all()
     assert all(o.ba.iterations >= 1 for o, k in zip(vo.outputs, kf) if k)
     T_wc = vo.trajectory_T_wc()
-    assert_close(T_wc[:, :3, 3], ref["T_wc"][:, :3, 3], 5e-2)
+    assert_gauge_free_close(T_wc, ref["T_wc"], ref["kf"])
+    final = {k: to_numpy(getattr(vo.carry.wmap, k)) for k in ("kf_pose", "kf_valid", "kf_id")}
+    assert window_gap(final, ref["final_window"]) < 5e-3
     gt = ref["gt_T_wc"][:, :3, 3]
     assert evaluation.ate_rmse(T_wc[:, :3, 3], gt) < 0.15
     assert j_eval.ate_rmse(ref["T_wc"][:, :3, 3], gt) < 0.15
+
+
+def assert_gauge_free_close(T_wc, T_wc_ref, kf):
+    """The BA-inline bars of the module docstring: frame-to-frame motion out
+    of frames without a keyframe within 0.03 m, rigidly aligned positions
+    within 0.05 m (RMS)."""
+    assert step_gap(T_wc, T_wc_ref, kf) < 0.03
+    assert evaluation.ate_rmse(T_wc[:, :3, 3], T_wc_ref[:, :3, 3]) < 0.05
+
+
+def _chunk_frames(cls):
+    ds = _dataset(cls)
+    ds.init()
+    frames = [ds.next_frame() for _ in range(CHUNK)]
+    return (ds, np.stack([f.left for f in frames]), np.stack([f.right for f in frames]),
+            np.asarray([f.frame_id for f in frames], np.int32))
+
+
+def test_chunk_equals_stepwise():
+    """`process_chunk` is `process_frame` in a loop: the same bits."""
+    ds, il, ir, fids = _chunk_frames(TDataset)
+    cfg = frontend.FrontendConfig.from_config(Config(OVERRIDES))
+    rig = ds.rig
+    carry = initial_carry(cfg, il.shape[1:], torch.float32, "cpu")
+    steps = []
+    for k in range(CHUNK):
+        carry, out = process_frame(cfg, rig, carry, t(il[k]), t(ir[k]), int(fids[k]))
+        steps.append(out)
+    carry2, outs = process_chunk(cfg, rig, initial_carry(cfg, il.shape[1:], torch.float32, "cpu"),
+                                 t(il), t(ir), t(fids))
+    assert torch.equal(outs.T_cw, torch.stack([o.T_cw for o in steps]))
+    assert outs.status.tolist() == [o.status for o in steps]
+    assert outs.kf_inserted.tolist() == [o.kf_inserted for o in steps] and outs.kf_inserted.dtype == torch.bool
+    assert outs.n_inliers.tolist() == [o.n_inliers for o in steps]
+    torch.testing.assert_close(outs.ba_chi, torch.stack([o.ba_chi for o in steps]), rtol=0, atol=0, equal_nan=True)
+    assert outs.ba.iterations.shape == (CHUNK,) and outs.ba.trace.shape == (CHUNK, 0, 2)
+    assert torch.equal(carry2.wmap.kf_pose, carry.wmap.kf_pose) and torch.equal(carry2.wmap.lm_pos, carry.wmap.lm_pos)
+    assert outs.kf_inserted.sum() >= 3
+
+
+def test_chunk_matches_reference():
+    import jax
+    import jax.numpy as jnp
+    from legoslam_tpu.pipeline import frontend as j_frontend
+    from legoslam_tpu.pipeline import visual_odometry as j_vo
+
+    jds, il, ir, fids = _chunk_frames(JDataset)
+    jcfg = j_frontend.FrontendConfig.from_config(JConfig({**OVERRIDES, "ba_assembly_precision": "f32"}))
+    chunk = jax.jit(lambda c, l, r, f: j_vo.process_chunk(jcfg, jds.rig, c, l, r, f, inline_ba=True))
+    _, jouts = chunk(j_vo.initial_carry(jcfg, il.shape[1:]), jnp.asarray(il), jnp.asarray(ir), jnp.asarray(fids))
+    cfg = frontend.FrontendConfig.from_config(Config(OVERRIDES))
+    rig = state.rig_from_numpy(tree_to_numpy(jds.rig))
+    _, outs = process_chunk(cfg, rig, initial_carry(cfg, il.shape[1:], torch.float32, "cpu"), t(il), t(ir), t(fids))
+    kf = to_numpy(outs.kf_inserted)
+    np.testing.assert_array_equal(to_numpy(outs.status), np.asarray(jouts.status))
+    np.testing.assert_array_equal(kf, np.asarray(jouts.kf_inserted))
+    assert (to_numpy(outs.status) == FrontendStatus.TRACKING_GOOD).all()
+    T_wc, T_wc_ref = np.linalg.inv(to_numpy(outs.T_cw)), np.linalg.inv(np.asarray(jouts.T_cw))
+    assert_gauge_free_close(T_wc, T_wc_ref, kf)
+    gt = jds.gt_T_wc[:CHUNK, :3, 3]
+    assert evaluation.ate_rmse(T_wc[:, :3, 3], gt) < 0.15
+    assert j_eval.ate_rmse(T_wc_ref[:, :3, 3], gt) < 0.15
 
 
 def test_ba_log_and_capacity_audit():
@@ -198,11 +279,9 @@ def test_ba_log_and_capacity_audit():
     assert all(o.ba.trace.shape == (10, 2) for o in vo.outputs)
 
 
-@pytest.mark.parametrize("mode", ["async"])
-def test_refuses_window_ba(mode):
-    """Async BA is refused, not run without BA."""
-    with pytest.raises(NotImplementedError, match="window BA"):
-        VisualOdometry(config=Config(OVERRIDES), dataset=_dataset(TDataset), ba_mode=mode, device="cpu")
+def test_refuses_unknown_ba_mode():
+    with pytest.raises(ValueError, match="unknown ba_mode"):
+        VisualOdometry(config=Config(OVERRIDES), dataset=_dataset(TDataset), ba_mode="threaded", device="cpu")
 
 
 def test_save_trajectory(tmp_path):

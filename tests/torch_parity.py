@@ -76,3 +76,31 @@ def assert_close(actual, expected, atol: float, where=None) -> None:
     if where is not None:
         a, e = a[np.asarray(where)], e[np.asarray(where)]
     np.testing.assert_allclose(a, e, rtol=0.0, atol=atol)
+
+
+def step_gap(T_wc_a, T_wc_b, kf) -> float:
+    """The largest distance (m) between two trajectories' frame-to-frame
+    translations, over the steps that leave a frame without a keyframe.  A
+    step out of a keyframe frame carries the window BA's move of the gauge
+    (every window pose is free), so it is left out."""
+    a, b = (np.asarray(T, np.float64) for T in (T_wc_a, T_wc_b))
+    step_a = np.linalg.inv(a[:-1]) @ a[1:]
+    step_b = np.linalg.inv(b[:-1]) @ b[1:]
+    quiet = ~np.asarray(kf, bool)[:-1]
+    return float(np.linalg.norm(step_a[quiet, :3, 3] - step_b[quiet, :3, 3], axis=-1).max())
+
+
+def window_gap(win_a, win_b) -> float:
+    """The largest entry of the difference between two windows' keyframe
+    poses taken relative to the oldest keyframe (by `kf_id`): what the free
+    gauge cannot move.  Both windows must hold the same keyframes."""
+    valid = np.asarray(win_a["kf_valid"], bool)
+    np.testing.assert_array_equal(valid, win_b["kf_valid"])
+    np.testing.assert_array_equal(np.asarray(win_a["kf_id"])[valid], np.asarray(win_b["kf_id"])[valid])
+    oldest = int(np.argmin(np.where(valid, win_a["kf_id"], np.iinfo(np.int32).max)))
+
+    def relative(T):
+        T = np.asarray(T, np.float64)
+        return (T @ np.linalg.inv(T[oldest]))[valid]
+
+    return float(np.abs(relative(win_a["kf_pose"]) - relative(win_b["kf_pose"])).max())
