@@ -89,7 +89,9 @@ def make_dist_solve_fn(mesh: Mesh, kernel: str = robust.HUBER, delta: float = 5.
         sizes = (K * 36, L * 9, K * L * 18, K * 6, L * 3, 1)
 
         def chi_build(st: lm_ops.BAState):
-            # The shard's blocks and chi, summed over the ranks in one reduction.
+            # The shard's blocks and chi, summed over the ranks in one reduction;
+            # float32 whatever cfg.assembly_precision says, as the reference's
+            # sharded build (dist_ba.py:130) has them.
             blocks, chi = schur.build_blocks(g_loc, st.poses, st.points, kernel, delta, with_chi=True, order=order)
             flat = all_reduce(torch.cat([blocks.Hpp.reshape(-1), blocks.Hll.reshape(-1), blocks.Hpl.reshape(-1),
                                          blocks.bp.reshape(-1), blocks.bl.reshape(-1), chi.reshape(1)]))

@@ -44,6 +44,10 @@ class BAConfig(NamedTuple):
     linear_solver: str = "cholesky"
     engine: str = "soa"           # "soa" | "blocks": the one engine of solver/schur.py
     trace: bool = False           # record the per-iteration chi/lambda solve trace
+    # "bf16" rounds window BA's cross terms to bfloat16 before the float32
+    # sums (solver/schur.py); chi and the rollback stay f32.  f32 here, bf16
+    # in the config's defaults, as the reference has them (ROADMAP C3).
+    assembly_precision: str = "f32"
 
 
 class BAStats(NamedTuple):
@@ -177,7 +181,8 @@ def solve_window(cfg: FrontendConfig, rig: StereoRig, wmap: WorldMap, ba_cfg: BA
         raise ValueError("use_marg_prior is not supported with an injected solve_fn")
     problem, counts = build_problem(cfg, rig, wmap)
     lm_cfg = lm_ops.LMConfig(iterations=ba_cfg.iterations, strategy=ba_cfg.strategy,
-                             linear_solver=ba_cfg.linear_solver, trace=ba_cfg.trace)
+                             linear_solver=ba_cfg.linear_solver, trace=ba_cfg.trace,
+                             assembly_precision=ba_cfg.assembly_precision)
 
     # Marginalization prior on the window poses (problem.cpp:338-355): the
     # stored sqrt-form prior, masked onto the slots that still hold the
@@ -229,7 +234,8 @@ def solve_window(cfg: FrontendConfig, rig: StereoRig, wmap: WorldMap, ba_cfg: BA
 
     # Window pose information at the optimum for the next eviction to
     # marginalize: the undamped Schur-reduced system plus the prior itself,
-    # so information accumulates across evictions.
+    # so information accumulates across evictions.  Assembled in float32 at
+    # either precision, as the reference's (backend.py:300) is.
     info = None
     if pose_prior is not None:
         blocks_f = schur.build_blocks(problem.graph, state.poses, state.points, robust.HUBER, ba_cfg.chi2_threshold,

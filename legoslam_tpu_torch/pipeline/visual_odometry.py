@@ -299,6 +299,7 @@ class VisualOdometry:
             linear_solver=self.config["linear_solver"],
             engine=self.config["lm_engine"],
             trace=bool(self.config["ba_trace"]),
+            assembly_precision=str(self.config["ba_assembly_precision"]),
         )
         schur.check_engine(self.ba_cfg.engine)
         if self.frontend_cfg.use_marg_prior and self.ba_solve_fn is not None:

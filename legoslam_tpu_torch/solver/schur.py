@@ -8,8 +8,15 @@ contractions in place of gathers and segment sums, edge_soa.py:7-18).  Here
 there is one engine: gathers per edge, the reference's default (`edge_soa`)
 edge math, and segment sums over the pose and landmark indices.  Config
 `lm_engine` "soa" and "blocks" both select it (`check_engine`); any other
-value raises ValueError.  There is no bfloat16 assembly: the blocks are
-assembled in float32, as the reference's `ba_assembly_precision: f32` does.
+value raises ValueError.
+
+`ba_assembly_precision: bf16`, the reference's default, runs the cross-block
+contraction on the TPU's matrix unit in one bfloat16 pass with float32
+accumulation (edge_soa.py:265-296): each edge's 18 pose-landmark terms are
+rounded to bfloat16 and summed in float32.  `build_blocks` does the same
+with one cast pair on the per-edge terms before its sums.  The pose and
+landmark blocks, the gradient and chi stay float32 at either precision, as
+the reference's code has them (its docstring's mention of Hll is outdated).
 
 Re-designs `lego::Problem`'s dense pipeline (src/lego/base/problem.cpp):
 `buildHessian` (:273-358) and `solveLinearEquation`'s Schur elimination of
@@ -178,7 +185,7 @@ def _segment_sum(terms: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 
 def build_blocks(graph: BAGraph, poses: torch.Tensor, points: torch.Tensor, kernel: str, delta: float,
-                 with_chi: bool = False, order: BAOrder = None):
+                 with_chi: bool = False, order: BAOrder = None, assembly_precision: str = "f32"):
     """buildHessian (problem.cpp:273-358): per-edge blocks summed into the
     pose, landmark and (pose, landmark) cross blocks in edge order: through
     the padded tables of `order` where given or on a card (built here if
@@ -188,7 +195,10 @@ def build_blocks(graph: BAGraph, poses: torch.Tensor, points: torch.Tensor, kern
     edges are zeroed before the robust kernel, the rank-one term of W is
     kept only where the PSD guard holds (base_edge.cpp:55), pose Jacobians
     of fixed poses are zeroed.  `with_chi=True` also returns the robust chi
-    at the same point, from the same sweep: (blocks, chi)."""
+    at the same point, from the same sweep: (blocks, chi).
+    `assembly_precision="bf16"` rounds the per-edge cross terms to bfloat16
+    before they are summed in float32 (the module docstring); any other
+    value keeps them float32."""
     K, L = poses.shape[0], points.shape[0]
     r, J = _edge_core(graph, poses, _finite(points), jacobians=True)
     vm = edge_mask(graph)
@@ -209,9 +219,12 @@ def build_blocks(graph: BAGraph, poses: torch.Tensor, points: torch.Tensor, kern
     H_e = JW @ J                                    # (E, 9, 9)
     b_e = -drho[:, None] * (J * r[:, :, None]).sum(1)  # (E, 9): -rho' J^T r (problem.cpp:329)
     E = r.shape[0]
+    cross = H_e[:, :6, 6:].reshape(E, 18)
+    if assembly_precision == "bf16":
+        cross = cross.to(torch.bfloat16).to(H_e.dtype)
     terms = (torch.cat([H_e[:, :6, :6].reshape(E, 36), b_e[:, :6]], dim=1),   # per pose
              torch.cat([H_e[:, 6:, 6:].reshape(E, 9), b_e[:, 6:]], dim=1),    # per landmark
-             H_e[:, :6, 6:].reshape(E, 18))                                   # per cross block
+             cross)                                                           # per cross block
     if order is None and r.is_cuda:
         order = build_order(graph, K, L)
     if order is not None:

@@ -1,6 +1,5 @@
 """YAML configuration with typed access and defaults (twin of
-legoslam_tpu/utils/config.py; the same DEFAULTS minus the TPU-only key
-`ba_assembly_precision`).
+legoslam_tpu/utils/config.py, with the same DEFAULTS).
 
 Replaces the reference's `Config` singleton over cv::FileStorage
 (include/legoslam/config.h:26-32, src/config.cpp:5-15), with two upgrades the
@@ -77,6 +76,12 @@ DEFAULTS: Dict[str, Any] = {
     # --- solver (problem.cpp:470-581) ---
     "lm_strategy": "default",      # "default" (Nielsen) | "strategy1"
     "lm_engine": "soa",            # "soa" (component-major) | "blocks"
+    # Precision of window BA's pose-landmark cross terms: "bf16" rounds each
+    # edge's term to bfloat16 before the float32 sums, as the reference's
+    # one-pass matrix-unit contraction does; chi, the other blocks and the
+    # accept/rollback loop stay float32.  "f32" assembles in float32 alone.
+    # At 10 iterations bf16 leaves window BA's chi above f32's (ROADMAP C3).
+    "ba_assembly_precision": "bf16",
     # Marginalize evicted keyframes into a pose prior (problem.cpp:617-781;
     # shipped but uncalled in the reference pipeline).  Off reproduces the
     # reference's discard-on-evict (map.cpp:34-86).

@@ -3,7 +3,7 @@ through the port's command line, on one GPU.
 
     python3 scripts/kitti_soak_torch.py [--frames 1000] [--workers 8] [--cache DIR] [--device cpu]
                                         [--app jax [--xla-isa AVX2]] [--save-trajectory OUT]
-                                        [--against TRAJ ...]
+                                        [--against TRAJ ...] [--config_file YAML] [--set KEY=VALUE ...]
 
 Renders the soak's sequence (376x1240, focal 720, baseline 0.54 m, the
 S-curve at 0.3 m/frame, 6 occluders, photometric noise 1.5) with the port's
@@ -12,7 +12,9 @@ in worker processes, and keeps it under `--cache` (default: the system's
 temporary directory) so that a second run skips the render.  Then runs
 `python -m legoslam_tpu_torch.apps.run_kitti --dataset_dir <seq> --out_dir
 <tmp> --log_every 1` (default config, as the JAX soak runs
-`apps/run_kitti.py`) and prints the frames that were not TRACKING_GOOD (from
+`apps/run_kitti.py`; `--config_file` and `--set key=value`, the latter
+written over the former into a temporary YAML, go to either command, e.g.
+`--set ba_assembly_precision=f32`) and prints the frames that were not TRACKING_GOOD (from
 the per-frame log), the path length, ATE, the last frame's error and the
 drift in m per 100 m (the last frame's error over the path), against the
 JAX soak's bar of 2.0 (tests/test_kitti_soak.py:147).  Exits non-zero where
@@ -21,9 +23,11 @@ command on the CPU; `--app jax` runs the JAX package's command
 (`apps/run_kitti.py`, on the CPU) on the same frames instead, with
 `--xla_cpu_max_isa` set to `--xla-isa` where given (the reference's
 trajectory moves with XLA's CPU instruction set, ROADMAP C17).
-`--save-trajectory OUT` keeps the run's `trajectory_kitti.txt`;
-`--against TRAJ ...` prints, for each such file of an earlier run on the
-same frames, the largest distance between the two runs' camera positions
+`--save-trajectory OUT` keeps the run's `trajectory_kitti.txt` and
+`--save-log OUT` its per-frame log (read by `scripts/ba_chi_logs.py`);
+`--load-trajectory TRAJ` evaluates such a file instead of running a
+command; `--against TRAJ ...` prints, for each such file of an earlier run
+on the same frames, the largest distance between the two runs' camera positions
 per 50 frames, the first frame at which it passes 0.05, 0.1 and 0.2 m, and
 the largest distance between their frame-to-frame motions.
 
@@ -52,6 +56,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 import chip_smoke  # noqa: E402
+from legoslam_tpu_torch.utils import evaluation  # noqa: E402
 
 DRIFT_BAR = 2.0  # m per 100 m, tests/test_kitti_soak.py:147
 
@@ -65,8 +70,17 @@ def main() -> int:
     ap.add_argument("--app", choices=("port", "jax"), default="port")
     ap.add_argument("--xla-isa", default="", help="with --app jax: XLA's --xla_cpu_max_isa")
     ap.add_argument("--save-trajectory", default=None, metavar="OUT")
+    ap.add_argument("--save-log", default=None, metavar="OUT", help="keep the command's log (scripts/ba_chi_logs.py)")
     ap.add_argument("--against", nargs="*", default=[], metavar="TRAJ")
+    ap.add_argument("--config_file", default=None, help="YAML config for the command (default: none)")
+    ap.add_argument("--set", nargs="*", default=[], metavar="KEY=VALUE",
+                    help="config keys over --config_file's, values read as YAML")
+    ap.add_argument("--load-trajectory", default=None, metavar="TRAJ",
+                    help="evaluate a run saved with --save-trajectory instead of running a command")
     args = ap.parse_args()
+    if args.load_trajectory:
+        est = np.loadtxt(args.load_trajectory).reshape(-1, 3, 4)
+        return evaluate(args, est, None, f"the run saved in {args.load_trajectory}")
     root = os.path.join(args.cache, f"{args.frames}", "07")
     t0 = time.perf_counter()
     if not os.path.exists(os.path.join(root, "COMPLETE")):
@@ -86,9 +100,29 @@ def main() -> int:
             flags = os.environ.get("XLA_FLAGS", "") + (f" --xla_cpu_max_isa={args.xla_isa}" if args.xla_isa else "")
             cmd, env = [sys.executable, "apps/run_kitti.py"], {**os.environ, "JAX_PLATFORMS": "cpu",
                                                              "XLA_FLAGS": flags.strip()}
-        proc = subprocess.run(cmd + ["--dataset_dir", root, "--out_dir", out_dir, "--log_every", "1"],
+        config_file = args.config_file
+        if args.set:
+            import yaml
+
+            values = {}
+            if config_file:
+                with open(config_file) as f:
+                    values = yaml.safe_load(f) or {}
+            for item in args.set:
+                key, sep, value = item.partition("=")
+                if not sep:
+                    ap.error(f"--set expects KEY=VALUE, got {item!r}")
+                values[key] = yaml.safe_load(value)
+            config_file = os.path.join(out_dir, "config.yaml")
+            with open(config_file, "w") as f:
+                yaml.safe_dump(values, f)
+        config = ["--config_file", os.path.abspath(config_file)] if config_file else []
+        proc = subprocess.run(cmd + config + ["--dataset_dir", root, "--out_dir", out_dir, "--log_every", "1"],
                               capture_output=True, text=True, cwd=REPO, env=env)
         run_s = time.perf_counter() - t0
+        if args.save_log:
+            with open(args.save_log, "w") as f:
+                f.write(proc.stderr)
         print("\n".join(line for line in proc.stderr.splitlines() if "legoslam.app]" in line or "VO:" in line),
               flush=True)
         statuses = re.findall(r"frame (\d+): (\w+) tracked=", proc.stderr)
@@ -100,6 +134,14 @@ def main() -> int:
         est = np.loadtxt(os.path.join(out_dir, "trajectory_kitti.txt")).reshape(-1, 3, 4)
         if args.save_trajectory:
             shutil.copyfile(os.path.join(out_dir, "trajectory_kitti.txt"), args.save_trajectory)
+    where = smi if args.app == "port" and args.device != "cpu" else "the CPU"
+    return evaluate(args, est, run_s, f"{args.app} on {where}")
+
+
+def evaluate(args, est, run_s, what) -> int:
+    """Print the run's distance from the `--against` runs and its errors
+    against the ground truth; 0 where it has every frame and drifts under
+    the bar."""
     for path in args.against:
         other = np.loadtxt(path).reshape(-1, 3, 4)
         gap = np.linalg.norm(est[:, :, 3] - other[:, :, 3], axis=1)
@@ -120,17 +162,21 @@ def main() -> int:
     final = float(np.linalg.norm(pos[-1] - gt_pos[-1]))
     drift = 100.0 * final / path
     ate = float(np.sqrt(np.mean(np.sum((pos - gt_pos) ** 2, axis=1))))
+    ate_aligned = evaluation.ate_rmse(pos, gt_pos)
     outside = np.nonzero(np.abs(gt_pos[:, 0]) > chip_smoke.SOAK_HALF_WIDTH)[0]
     k = int(outside[0]) if len(outside) else len(gt_pos)
     path_in = float(np.linalg.norm(np.diff(gt_pos[:k], axis=0), axis=1).sum())
     print(f"soak: inside the corridor (frames 0..{k - 1}, {path_in:.1f} m): final error "
           f"{np.linalg.norm(pos[k - 1] - gt_pos[k - 1]):.4f} m, drift "
           f"{100.0 * np.linalg.norm(pos[k - 1] - gt_pos[k - 1]) / path_in:.4f} m per 100 m", flush=True)
-    print(f"soak: {len(est)} frames in {run_s:.1f} s (the command line, start-up included), path {path:.1f} m, "
-          f"ATE {ate:.4f} m (unaligned, as the JAX soak), final error {final:.4f} m, drift {drift:.4f} m per "
-          f"100 m (bar {DRIFT_BAR}); {args.app} on "
-          f"{smi if args.app == 'port' and args.device != 'cpu' else 'the CPU'}"
-          f"{f', --xla_cpu_max_isa={args.xla_isa}' if args.xla_isa else ''}", flush=True)
+    took = f" in {run_s:.1f} s (the command line, start-up included)" if run_s is not None else ""
+    print(f"soak: {len(est)} frames{took}, path {path:.1f} m, "
+          f"ATE {ate:.4f} m (unaligned, as the JAX soak; {ate_aligned:.6f} m rigidly aligned, as chip_smoke.py's "
+          f"step 10), final error {final:.4f} m, drift {drift:.4f} m per "
+          f"100 m (bar {DRIFT_BAR}); {what}"
+          f"{f', --xla_cpu_max_isa={args.xla_isa}' if args.xla_isa else ''}"
+          f"{f', --config_file {args.config_file}' if args.config_file else ''}"
+          f"{f', --set {' '.join(args.set)}' if args.set else ''}", flush=True)
     return 0 if len(est) == args.frames and drift < DRIFT_BAR else 1
 
 

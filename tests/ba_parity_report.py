@@ -1,7 +1,8 @@
 """The numbers behind PERF.md's window-BA parity findings, on the CPU.
 
     JAX_PLATFORMS=cpu python -m tests.ba_parity_report [--bench-world | --only-bench-world | --loop-records FILE
-                                                        | --isa-spread]
+                                                        | --isa-spread | --kitti-window SEQ FRAME [--save OUT]
+                                                        | --kitti-handover SEQ START END]
 
 Not a test (pytest does not collect it); it runs what the parity tests
 check and prints the values beside their bars:
@@ -13,12 +14,13 @@ check and prints the values beside their bars:
    fixed, and the full `ba_step`, whose window may end a rigid motion away
    from the reference's, per LM strategy;
 3. with --bench-world: the JAX reference's BA-inline runs of the 40-frame
-   bench world at `ba_assembly_precision: f32`, once with the defaults and
-   once with `track_mode: frame` and `stereo_matcher: klt`: the keyframe
-   counts and ATEs that chip_smoke.py holds the port to (about 40 s each);
-   and the port on the CPU in the second configuration, against that
-   reference run: keyframes, both ATEs, and the two trajectories' distance
-   after a rigid alignment (what the card's ATE bar there rests on);
+   bench world, once with the defaults and once with `track_mode: frame`
+   and `stereo_matcher: klt`, each at `ba_assembly_precision: bf16` (the
+   default) and at f32: the keyframe counts and ATEs that chip_smoke.py
+   holds the port to (about 40 s each); and the port on the CPU in the same
+   configuration, against that reference run: keyframes, both ATEs, and the
+   two trajectories' distance after a rigid alignment (what the card's ATE
+   bars rest on);
 4. with --loop-records FILE: the keyframe records that
    `scripts/loop_course_scan.py --dump` wrote on the card go through the
    reference's `LoopCloser` and the port's (on the CPU) in order; prints
@@ -29,14 +31,23 @@ check and prints the values beside their bars:
 5. with --isa-spread: the reference's own spread across XLA's CPU
    instruction sets (`--xla_cpu_max_isa` unset, AVX2, SSE4_2; each in a
    process of its own, about a minute each), on what the parity tests
-   compare: the 14-frame corridor with BA inline, the tiny-window run with
+   compare: the 14-frame corridor with BA inline (at f32, and at the
+   default bf16 with window BA's chi per keyframe), the tiny-window run with
    the prior, one `ba_step` per LM strategy and `solve_window`'s
    information on shared maps (the unset setting's), and the hook run of
    tests/test_torch_loop.py; beside it the port (on the CPU, which no such
    flag moves) against each setting.  The first frame at which the settings
    part and what parts there (the window's poses relative to its oldest
    keyframe, or a count) are printed first.  The parity tests' bars are set
-   from these numbers.
+   from these numbers;
+6. with --kitti-window SEQ FRAME: on a KITTI sequence (e.g. the soak's, as
+   `scripts/kitti_soak_torch.py` renders it) the reference's map just
+   before keyframe FRAME's window BA, through both packages' `ba_step` at
+   bf16 and f32, whole and cut to its window (--save OUT writes the cut
+   map: tests/data/kitti_soak_window_f25.npz was made so);
+7. with --kitti-handover SEQ START END: the reference's carry after START
+   frames of that sequence, stepped by the port through frame END; window
+   BA's chi on each keyframe frame beside the reference's own run's.
 """
 
 from __future__ import annotations
@@ -60,18 +71,18 @@ from legoslam_tpu_torch.utils import evaluation
 from legoslam_tpu_torch.utils.config import Config
 from tests import test_torch_backend as tb
 from tests import test_torch_vo as tv
-from tests.torch_parity import step_gap, to_numpy, window_gap
+from tests.torch_parity import compact_window, flat, step_gap, to_numpy, tree_to_numpy, window_gap
 
 
 def corridor() -> None:
     ref = tv.run_reference_inline()
-    vo = VisualOdometry(config=Config(tv.OVERRIDES), dataset=tv._dataset(tv.TDataset), device="cpu")
+    vo = VisualOdometry(config=Config({**tv.OVERRIDES, **tv.F32}), dataset=tv._dataset(tv.TDataset), device="cpu")
     vo.init()
     vo.run()
     dT = np.abs(vo.trajectory_T_cw() - ref["T_cw"]).max(axis=(1, 2))
     T_wc, gt = vo.trajectory_T_wc(), ref["gt_T_wc"][:, :3, 3]
     print("corridor, BA inline: max |dT_cw| per frame", np.array2string(dT, precision=7))
-    print(f"corridor, BA inline: keyframes port {vo.keyframe_flags().astype(int).tolist()} "
+    print(f"corridor, BA inline (both at f32): keyframes port {vo.keyframe_flags().astype(int).tolist()} "
           f"reference {ref['kf'].astype(int).tolist()}")
     print(f"corridor, BA inline: max |d position| {np.abs(T_wc[:, :3, 3] - ref['T_wc'][:, :3, 3]).max():.6f} m "
           f"(bar 0.05); ATE port {evaluation.ate_rmse(T_wc[:, :3, 3], gt):.6f} m, reference "
@@ -116,30 +127,31 @@ def bench_world() -> None:
     from legoslam_tpu.utils.config import Config as JConfig
 
     n = 40
-    for name, modes in (("defaults", {}), ("track_mode frame + stereo_matcher klt",
-                                           {"track_mode": "frame", "stereo_matcher": "klt"})):
+    for (name, modes), precision in itertools.product(
+            (("defaults", {}), ("track_mode frame + stereo_matcher klt", {"track_mode": "frame", "stereo_matcher": "klt"})),
+            ("bf16", "f32")):
+        # bf16 is both packages' default; f32 is pinned on both sides.
+        pin = {} if precision == "bf16" else {"ba_assembly_precision": "f32"}
         ds = SyntheticPlanesDataset(n_frames=n, shape=(188, 620), focal=360.0, baseline=0.54, speed=0.12,
                                     half_width=10.0, length=200.0)
         vo = JVisualOdometry(config=JConfig({"stereo_depth_inferior_limit": 2.0, "stereo_depth_superior_limit": 60.0,
-                                             "ba_assembly_precision": "f32", **modes}), dataset=ds)
+                                             **pin, **modes}), dataset=ds)
         assert vo.ba_mode == "inline" and vo.init()
         vo.run()
         T = vo.trajectory_T_wc()
         kf = np.asarray([bool(o.kf_inserted) for o in vo.outputs])
-        print(f"bench world, JAX reference, BA inline (f32), {name}: statuses {vo.statuses().tolist()}, keyframes "
-              f"{int(kf.sum())}, ATE {evaluation.ate_rmse(T[:, :3, 3], ds.gt_T_wc[:n, :3, 3]):.6f} m")
-        if not modes:
-            continue
+        print(f"bench world, JAX reference, BA inline ({precision}), {name}: statuses {vo.statuses().tolist()}, "
+              f"keyframes {int(kf.sum())}, ATE {evaluation.ate_rmse(T[:, :3, 3], ds.gt_T_wc[:n, :3, 3]):.6f} m")
         from legoslam_tpu_torch.pipeline.dataset import SyntheticPlanesDataset as TDataset
 
         tds = TDataset(n_frames=n, shape=(188, 620), focal=360.0, baseline=0.54, speed=0.12, half_width=10.0,
                        length=200.0)
         port = VisualOdometry(config=Config({"stereo_depth_inferior_limit": 2.0, "stereo_depth_superior_limit": 60.0,
-                                             **modes}), dataset=tds, device="cpu")
+                                             **pin, **modes}), dataset=tds, device="cpu")
         assert port.ba_mode == "inline" and port.init()
         port.run()
         P = port.trajectory_T_wc()
-        print(f"bench world, port on the CPU, {name}: statuses equal "
+        print(f"bench world, port on the CPU ({precision}), {name}: statuses equal "
               f"{bool((port.statuses() == vo.statuses()).all())}, keyframe flags equal "
               f"{bool((port.keyframe_flags() == kf).all())} ({int(port.keyframe_flags().sum())}), ATE "
               f"{evaluation.ate_rmse(P[:, :3, 3], tds.gt_T_wc[:n, :3, 3]):.6f} m; port against reference, rigidly "
@@ -192,6 +204,87 @@ def loop_records(path: str, save_pair: str = None) -> None:
         print(f"  {name}: closed {closed}, stats {lc.stats}")
 
 
+def kitti_handover(seq: str, start: int, end: int) -> None:
+    """The reference's carry after `start` frames of a KITTI sequence (the
+    default config) handed to the port, which steps frames `start`..`end`;
+    prints window BA's chi on every keyframe frame beside the reference's."""
+    from legoslam_tpu.pipeline.dataset import KittiDataset as JKitti
+    from legoslam_tpu.pipeline.visual_odometry import VisualOdometry as JVisualOdometry
+    from legoslam_tpu.utils.config import Config as JConfig
+    from legoslam_tpu_torch.pipeline import frontend
+    from legoslam_tpu_torch.pipeline.dataset import KittiDataset
+    from legoslam_tpu_torch.pipeline.visual_odometry import process_frame
+    from tests.torch_parity import t
+
+    vo = JVisualOdometry(config=JConfig({"dataset_dir": seq}), dataset=JKitti(seq, use_native=False))
+    assert vo.init()
+    for _ in range(start):
+        assert vo.step()
+    carry = state.carry_from_numpy(tree_to_numpy(vo.carry))
+    for _ in range(start, end + 1):
+        assert vo.step()
+    ref_chi = {int(i): float(o.ba_chi) for i, o in enumerate(vo.outputs) if bool(o.kf_inserted)}
+    ds = KittiDataset(seq, use_native=False)
+    assert ds.init()
+    config = Config({"dataset_dir": seq})
+    cfg = frontend.FrontendConfig.from_config(config)
+    ba_cfg = backend.BAConfig(assembly_precision=config["ba_assembly_precision"])
+    ds.seek(start)
+    for k in range(start, end + 1):
+        fr = ds.next_frame()
+        carry, o = process_frame(cfg, ds.rig, carry, t(fr.left), t(fr.right), k, ba_cfg)
+        if o.kf_inserted:
+            print(f"kitti handover after {start} frames: keyframe frame {k}, window BA chi port {float(o.ba_chi):.5f} "
+                  f"reference {ref_chi.get(k, float('nan')):.5f}, tracked {int(o.n_tracked)}")
+
+
+def kitti_window(seq: str, frame: int, out: str = None) -> None:
+    """The reference's world map just before keyframe `frame`'s BA on a KITTI
+    sequence (the default config, as `scripts/kitti_soak_torch.py` runs it):
+    its run to `frame`, then `frame` stepped without BA from a copy of the
+    carry.  Prints both packages' `ba_step` at bf16 and f32 on that map and
+    on its window cut to the landmarks it sees (`compact_window`); with
+    `out`, writes the cut map and the sequence's projections there (what
+    tests/test_torch_backend.py's KITTI-window test reads)."""
+    import jax
+    import jax.numpy as jnp
+
+    from legoslam_tpu.pipeline.dataset import KittiDataset as JKitti
+    from legoslam_tpu.pipeline.visual_odometry import VisualOdometry as JVisualOdometry
+    from legoslam_tpu.utils.config import Config as JConfig
+
+    conf = JConfig({"dataset_dir": seq})
+    vo = JVisualOdometry(config=conf, dataset=JKitti(seq, use_native=False))
+    assert vo.init()
+    for _ in range(frame):
+        assert vo.step()
+    carry = jax.tree_util.tree_map(jnp.copy, vo.carry)
+    frames = JKitti(seq, use_native=False)
+    assert frames.init()
+    for _ in range(frame + 1):
+        fr = frames.next_frame()
+    assert fr.frame_id == frame
+    pre = JVisualOdometry(config=conf, dataset=JKitti(seq, use_native=False), inline_ba=False)
+    assert pre.init()
+    carry, o = pre._step_fn(carry, jnp.asarray(fr.left, jnp.float32), jnp.asarray(fr.right, jnp.float32),
+                             jnp.asarray(frame, jnp.int32))
+    assert bool(o.kf_inserted), f"frame {frame} is not a keyframe"
+    full = tree_to_numpy(carry.wmap)
+    cut = compact_window(full)
+    with open(os.path.join(seq, "calib.txt")) as f:
+        P = [np.asarray([float(v) for v in line.split()[1:]]).reshape(3, 4) for line in f if line[:2] in ("P0", "P1")]
+    if out:
+        np.savez_compressed(out, P0=P[0], P1=P[1], frame=frame, **flat(cut, "wmap/"))
+        print(f"kitti window: wrote {out} ({os.path.getsize(out)} bytes)")
+    for name, d in (("the run's map", full), ("cut to its window", cut)):
+        for precision in ("bf16", "f32"):
+            chi = tb.kitti_window_solves(d, P, precision)
+            print(f"kitti window, frame {frame}, {name} ({len(d['lm_pos'])} landmark slots), {precision}: "
+                  f"ba_step chi reference {chi['reference']:.5f} port {chi['port']:.5f} (relative "
+                  f"{abs(chi['port'] - chi['reference']) / chi['reference']:.5f}); relative poses apart "
+                  f"{chi['window_gap']:.2e}; LM iterations {chi['iterations']}")
+
+
 ISAS = ("", "AVX2", "SSE4_2")  # "": XLA's own choice for the host
 
 
@@ -210,6 +303,8 @@ def _isa_runs(out: str) -> None:
     res = {}
     r = tv.run_reference_inline()
     res["corridor"] = {k: r[k] for k in ("statuses", "kf", "T_wc", "final_window", "ba_chi")}
+    r = tv.run_reference_inline(tv.DEFAULT)
+    res["corridor_bf16"] = {k: r[k] for k in ("statuses", "kf", "T_wc", "final_window", "ba_chi")}
     r = tm.run_reference_tiny()
     res["tiny"] = {k: r[k] for k in ("statuses", "kf", "T_wc", "final_window", "final_marg")}
     res["maps"] = {"window": tb.reference_maps()["maps"]["window"], "carry5": r["carries"][5]["wmap"]}
@@ -265,17 +360,19 @@ def _port_runs():
     from tests import test_torch_marg as tm
 
     port = {}
-    for name, conf in (("corridor", tv.OVERRIDES), ("tiny", tm.TINY)):
+    for name, conf in (("corridor", {**tv.OVERRIDES, **tv.F32}), ("tiny", {**tm.TINY, **tv.F32}),
+                       ("corridor_bf16", tv.OVERRIDES)):
         vo = VisualOdometry(config=Config(conf), dataset=tv._dataset(TDataset), device="cpu")
         vo.init()
         vo.run()
         window = {k: to_numpy(getattr(vo.carry.wmap, k)) for k in ("kf_pose", "kf_valid", "kf_id")}
         port[name] = {"statuses": vo.statuses(), "kf": vo.keyframe_flags(), "T_wc": vo.trajectory_T_wc(),
-                      "final_window": window,
+                      "final_window": window, "ba_chi": np.asarray([float(o.ba_chi) for o in vo.outputs]),
                       "final_marg": {k: to_numpy(v) for k, v in vars(vo.carry.wmap.marg).items()}}
     port["hook"] = {}
     for name, make in _hook_closers().items():
-        vo = VisualOdometry(config=Config(tl.HOOK_CONFIG), dataset=tl._hook_dataset(TDataset), device="cpu")
+        vo = VisualOdometry(config=Config({**tl.HOOK_CONFIG, **tv.F32}), dataset=tl._hook_dataset(TDataset),
+                            device="cpu")
         vo.init()
         vo.loop_closer = make()
         vo.run()
@@ -311,6 +408,20 @@ def _run_gaps(a, b):
         g[f"hook {name}: frame 8 against its plain run"] = float(np.abs(T[8] - P[8]).max())
         g[f"hook {name}: frame 9 against its plain run, corrected"] = float(
             np.abs(T[9] - P[9] @ np.linalg.inv(G)).max())
+    return g
+
+
+def _default_gaps(x, y):
+    """What tests/test_torch_vo.py's default-path tests compare, between two
+    corridor runs at the default precision (`y` a reference setting)."""
+    from legoslam_tpu_torch.utils import evaluation as ev
+
+    g = {"statuses, keyframes equal": float((x["statuses"] == y["statuses"]).all() and (x["kf"] == y["kf"]).all())}
+    for k in np.nonzero(y["kf"])[0][1:]:  # the first BA, one keyframe, ends at a chi at the rounding level
+        g[f"window BA chi at keyframe frame {k}, relative"] = abs(x["ba_chi"][k] - y["ba_chi"][k]) / abs(y["ba_chi"][k])
+    g["final window, relative poses"] = window_gap(x["final_window"], y["final_window"])
+    g["rigidly aligned distance (m)"] = ev.ate_rmse(x["T_wc"][:, :3, 3], y["T_wc"][:, :3, 3])
+    g["frame-to-frame motion, non-keyframe steps (m)"] = step_gap(x["T_wc"], y["T_wc"], y["kf"])
     return g
 
 
@@ -370,6 +481,16 @@ def isa_spread() -> None:
               f"{b['corridor']['ba_chi'][k]:.5f}")
 
     port = _port_runs()
+    for key, precision in (("corridor_bf16", "the default (bf16)"), ("corridor", "f32")):
+        for name, r in [*((n, runs[n][key]) for n in names), ("port", port[key])]:
+            print(f"corridor at {precision}, {name}: window BA chi at keyframe frames "
+                  f"{np.nonzero(r['kf'])[0].tolist()}: {np.array2string(r['ba_chi'][r['kf']], precision=5)}")
+    _table("corridor at the default (bf16 on both sides; the last columns: the port at bf16, then at f32, against "
+           "each setting):",
+           {f"{a}/{b}": _default_gaps(runs[a]["corridor_bf16"], runs[b]["corridor_bf16"])
+            for a, b in itertools.permutations(names, 2)},
+           {**{f"port/{a}": _default_gaps(port["corridor_bf16"], runs[a]["corridor_bf16"]) for a in names},
+            **{f"f32 port/{a}": _default_gaps(port["corridor"], runs[a]["corridor_bf16"]) for a in names}})
     _table("whole runs (the port on the CPU against each setting in the last columns):",
            {f"{a}/{b}": _run_gaps(runs[a], runs[b]) for a, b in itertools.combinations(names, 2)},
            {f"port/{a}": _run_gaps(port, runs[a]) for a in names})
@@ -388,6 +509,11 @@ def main() -> None:
                     help="with --loop-records: write the two records of the card's worst closure, for tests/data")
     ap.add_argument("--only-bench-world", action="store_true", help="skip the corridor and gauge reports")
     ap.add_argument("--isa-spread", action="store_true")
+    ap.add_argument("--kitti-window", nargs=2, default=None, metavar=("SEQ", "FRAME"),
+                    help="the reference's map before keyframe FRAME's BA on the KITTI sequence SEQ")
+    ap.add_argument("--save", default=None, metavar="OUT", help="with --kitti-window: write the cut map")
+    ap.add_argument("--kitti-handover", nargs=3, default=None, metavar=("SEQ", "START", "END"),
+                    help="the reference's carry after START frames stepped by the port to frame END")
     ap.add_argument("--isa-runs", default=None, metavar="OUT", help=argparse.SUPPRESS)
     ap.add_argument("--isa-map-solves", nargs=2, default=None, metavar=("OUT", "MAPS"), help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -399,6 +525,12 @@ def main() -> None:
         return
     if args.isa_spread:
         isa_spread()
+        return
+    if args.kitti_handover:
+        kitti_handover(args.kitti_handover[0], *map(int, args.kitti_handover[1:]))
+        return
+    if args.kitti_window:
+        kitti_window(args.kitti_window[0], int(args.kitti_window[1]), args.save)
         return
     if args.loop_records:
         loop_records(args.loop_records, args.save_pair)

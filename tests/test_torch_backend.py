@@ -6,7 +6,7 @@ corridor (tests/test_torch_vo.py's scene and small capacities, a keyframe
 every second frame), copied to NumPy after the first frame (stereo init and
 its BA) and after the seventh (a window of four keyframes), and handed to
 the port with `state.worldmap_from_numpy`.  The reference runs with
-`ba_assembly_precision: f32`, the port's only assembly precision.
+`ba_assembly_precision: f32`; the port's `BAConfig()` assembles at f32.
 
 The reference leaves every window pose free (backend.py:176), so the
 window's rigid placement (its gauge) is held only by the LM damping, and
@@ -24,6 +24,8 @@ may fall either way) and the observation counts are equal where they agree;
 `merge_ba_result` exact.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -40,11 +42,18 @@ from legoslam_tpu.utils.config import Config as JConfig
 from legoslam_tpu_torch.pipeline import backend, frontend, state
 from legoslam_tpu_torch.solver import lm, robust, schur
 from legoslam_tpu_torch.utils.config import Config
-from tests.test_torch_vo import OVERRIDES, _dataset
-from tests.torch_parity import agreement, assert_close, t, to_numpy, tree_to_numpy
+from tests.test_torch_vo import F32, OVERRIDES, _dataset
+from tests.torch_parity import (agreement, assert_close, load_kitti_window, t, to_numpy, tree_to_numpy,
+                                window_gap)
 
 CONFIG = {**OVERRIDES, "max_keyframe_gap": 2}
 SEED = 0
+KITTI_WINDOW = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "kitti_soak_window_f25.npz")
+# The run's chi at frame 25: port 46.19, reference 46.54 / 46.63 / 46.60 under
+# XLA's instruction sets (a spread of 0.19%).  On the reference's own map the
+# reference gives 46.54182 / 46.54182 / 46.54197 and the port 46.54177 (f32:
+# 43.51135 and 43.51228), so the bar sits far below the run's gap.
+KITTI_CHI_RTOL = 1e-4
 
 
 @pytest.fixture(scope="module")
@@ -55,7 +64,7 @@ def ref():
 def reference_maps():
     """The reference's maps, rig and configs (see the module docstring)."""
     ds = _dataset(JDataset)
-    vo = JVisualOdometry(config=JConfig({**CONFIG, "ba_assembly_precision": "f32"}), dataset=ds)
+    vo = JVisualOdometry(config=JConfig({**CONFIG, **F32}), dataset=ds)
     assert vo.ba_mode == "inline" and vo.init()
     maps = {}
     for k in range(7):
@@ -69,7 +78,7 @@ def reference_maps():
         "rig": ds.rig,
         "port_rig": state.rig_from_numpy(tree_to_numpy(ds.rig)),
         "jcfg": j_frontend.FrontendConfig.from_config(JConfig(CONFIG)),
-        "cfg": frontend.FrontendConfig.from_config(Config(CONFIG)),
+        "cfg": frontend.FrontendConfig.from_config(Config({**CONFIG, **F32})),
     }
 
 
@@ -248,6 +257,45 @@ def test_ba_step_removes_planted_outlier(ref):
     assert not (removed & ~is_lm).any()
     np.testing.assert_array_equal(obs_l, np.asarray(jm.kf_obs_left))
     np.testing.assert_array_equal(obs_r, np.asarray(jm.kf_obs_right))
+
+
+def kitti_window_solves(d, P, precision):
+    """`ba_step` by both packages on the world map `d` (NumPy, by field) of a
+    KITTI sequence with projections P, at `precision`: the default config's
+    capacities but for the landmark table's size.  Returns both chis, the
+    LM iterations and the windows' relative poses apart."""
+    from legoslam_tpu.geometry.camera import StereoRig as JStereoRig
+    from legoslam_tpu_torch.geometry.camera import StereoRig
+
+    conf = {"max_landmarks": len(d["lm_pos"])}
+    jm, jst = j_backend.ba_step(j_frontend.FrontendConfig.from_config(JConfig(conf)),
+                                JStereoRig.from_kitti_projections(P[0], P[1], scale=0.5), _jtree(JWorldMap, d),
+                                j_backend.BAConfig(assembly_precision=precision))
+    m, st = backend.ba_step(frontend.FrontendConfig.from_config(Config(conf)),
+                            StereoRig.from_kitti_projections(P[0], P[1], scale=0.5), state.worldmap_from_numpy(d),
+                            backend.BAConfig(assembly_precision=precision))
+    win = {"kf_valid": d["kf_valid"], "kf_id": d["kf_id"]}
+    return {"reference": float(jst.chi), "port": float(st.chi), "iterations": (int(jst.iterations), st.iterations),
+            "window_gap": window_gap({**win, "kf_pose": to_numpy(m.kf_pose)}, {**win, "kf_pose": np.asarray(jm.kf_pose)})}
+
+
+@pytest.mark.parametrize("precision", ["bf16", "f32"])
+def test_kitti_window_ba_matches_reference(precision):
+    """ROADMAP C15: on the KITTI soak's frames (scripts/kitti_soak_torch.py
+    --frames 460, the default config) the port's window BA chi first leaves
+    the reference's own spread at keyframe frame 25.  The reference's map
+    just before that BA (its window and the 648 landmarks it sees, written
+    by `python -m tests.ba_parity_report --kitti-window <seq> 25 --save`)
+    goes through both packages' `ba_step`: chi within KITTI_CHI_RTOL, the
+    window relative to its oldest keyframe within 1e-3 (measured 8.6e-5),
+    at the default bf16 and at f32.  So window BA, given the same map, is
+    not where the two runs part."""
+    d, P, frame = load_kitti_window(KITTI_WINDOW)
+    assert frame == 25 and len(d["lm_pos"]) == 648 and d["kf_valid"].sum() == 6
+    r = kitti_window_solves(d, P, precision)
+    assert r["iterations"][0] == r["iterations"][1] == 10
+    assert abs(r["port"] - r["reference"]) <= KITTI_CHI_RTOL * r["reference"], r
+    assert r["window_gap"] < 1e-3, r
 
 
 def test_merge_ba_result_on_moved_map(ref):

@@ -2,7 +2,7 @@
 / `load_checkpoint`) against the JAX package's file format and runs.
 
 The corridor is tests/test_torch_vo.py's (12 frames, small capacities), with
-window BA inline at `ba_assembly_precision: f32` in the reference.  A port
+window BA inline at `ba_assembly_precision: f32` in both packages.  A port
 run resumed from its own checkpoint after 6 frames equals the uninterrupted
 run bit for bit on the CPU.  A checkpoint the reference writes after 6 frames
 resumes in the port, and one the port writes resumes in the reference; each
@@ -24,7 +24,7 @@ from legoslam_tpu_torch.pipeline.state import carry_to_numpy
 from legoslam_tpu_torch.pipeline.visual_odometry import VisualOdometry
 from legoslam_tpu_torch.utils import checkpoint
 from legoslam_tpu_torch.utils.config import Config
-from tests.test_torch_vo import OVERRIDES
+from tests.test_torch_vo import F32, OVERRIDES
 
 N = 12
 STOP = 6
@@ -36,13 +36,13 @@ def _dataset(cls):
 
 
 def _port(**kw):
-    vo = VisualOdometry(config=Config({**OVERRIDES, **kw}), dataset=_dataset(TDataset), device="cpu")
+    vo = VisualOdometry(config=Config({**OVERRIDES, **F32, **kw}), dataset=_dataset(TDataset), device="cpu")
     assert vo.init()
     return vo
 
 
 def _reference():
-    vo = JVisualOdometry(config=JConfig({**OVERRIDES, "ba_assembly_precision": "f32"}), dataset=_dataset(JDataset))
+    vo = JVisualOdometry(config=JConfig({**OVERRIDES, **F32}), dataset=_dataset(JDataset))
     assert vo.init()
     return vo
 
@@ -159,3 +159,28 @@ def test_port_checkpoint_resumes_in_reference(runs):
     assert list(ref.frame_ids) == port.frame_ids
     _held(np.asarray(ref.statuses()), np.asarray([bool(o.kf_inserted) for o in ref.outputs]), ref.trajectory_T_wc(),
           port.statuses(), port.keyframe_flags(), port.trajectory_T_wc())
+
+
+def test_resume_reads_the_precision_from_the_config(runs):
+    """A checkpoint holds no config, in the reference as here, so a resumed
+    run assembles window BA at the precision of the config it was made with:
+    the f32 run's checkpoint resumed under the default (bf16) goes on at
+    bf16, and its BA chi parts from the f32 run's from the first keyframe
+    after the resume."""
+    import json
+
+    meta = checkpoint.read_meta(str(runs["dir"] / "port.npz"))
+    assert "assembly" not in json.dumps(meta)
+    full = runs["port"]
+    assert full.ba_cfg.assembly_precision == "f32"
+    vo = VisualOdometry(config=Config(OVERRIDES), dataset=_dataset(TDataset), device="cpu")
+    assert vo.init()
+    vo.load_checkpoint(str(runs["dir"] / "port.npz"))
+    assert vo.ba_cfg.assembly_precision == "bf16"
+    while vo.step():
+        pass
+    chi, chi_full = ([float(o.ba_chi) for o in r.outputs] for r in (vo, full))
+    np.testing.assert_array_equal(chi[:STOP], chi_full[:STOP])
+    first = STOP + int(np.argmax(full.keyframe_flags()[STOP:]))
+    assert full.keyframe_flags()[first] and vo.keyframe_flags()[first]
+    assert np.isfinite(chi[first]) and chi[first] != chi_full[first]

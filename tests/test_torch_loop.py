@@ -54,7 +54,7 @@ from legoslam_tpu_torch.solver import pose_graph_host
 from legoslam_tpu_torch.utils import evaluation
 from legoslam_tpu_torch.utils.config import Config
 from tests.test_loop_closure import FOCAL, SHAPE, _grid_features, _make_record, loop_trajectory
-from tests.test_torch_vo import OVERRIDES, _dataset
+from tests.test_torch_vo import F32, OVERRIDES, _dataset
 from tests.torch_parity import step_gap, to_numpy, tree_to_numpy
 
 
@@ -364,7 +364,7 @@ def _hook_dataset(cls):
 def reference_hook_run(closer):
     """The reference's `VisualOdometry` over the 12 hook frames (BA inline at
     f32) with `closer` in place of its loop closer: (T_cw, keyframe flags)."""
-    jvo = j_vo.VisualOdometry(config=JConfig({**HOOK_CONFIG, "ba_assembly_precision": "f32"}),
+    jvo = j_vo.VisualOdometry(config=JConfig({**HOOK_CONFIG, **F32}),
                               dataset=_hook_dataset(JDataset))
     assert jvo.init()
     jvo.loop_closer = closer
@@ -418,11 +418,11 @@ def test_loop_hook_resets_on_lost():
 
 def test_loop_hook_frame_ids_match_reference_driver():
     """The reference driver's records on the same 12 frames (detector shut)."""
-    jvo = j_vo.VisualOdometry(config=JConfig({**HOOK_CONFIG, "ba_assembly_precision": "f32"}),
+    jvo = j_vo.VisualOdometry(config=JConfig({**HOOK_CONFIG, **F32}),
                               dataset=_hook_dataset(JDataset))
     assert jvo.init()
     jvo.run()
-    vo = VisualOdometry(config=Config(HOOK_CONFIG), dataset=_hook_dataset(TDataset), device="cpu")
+    vo = VisualOdometry(config=Config({**HOOK_CONFIG, **F32}), dataset=_hook_dataset(TDataset), device="cpu")
     assert vo.init()
     vo.run()
     ids, T = vo.keyframe_trajectory()
@@ -466,7 +466,7 @@ def test_loop_correction_applied_at_the_reference_frame():
     ref_plain, _ = reference_hook_run(_StubCloser())
     runs = {}
     for name, closer in (("plain", _StubCloser()), ("corrected", _FixedCorrection(7, G))):
-        vo = VisualOdometry(config=Config(HOOK_CONFIG), dataset=_hook_dataset(TDataset), device="cpu")
+        vo = VisualOdometry(config=Config({**HOOK_CONFIG, **F32}), dataset=_hook_dataset(TDataset), device="cpu")
         assert vo.init()
         vo.loop_closer = closer
         vo.run()

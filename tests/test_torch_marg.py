@@ -13,7 +13,7 @@ case of exactly-zero rows, which is what a stale window slot produces.
 The maps come from one reference run: the 14-frame test corridor with a
 window of 4 active keyframes in 5 slots and a keyframe on every frame
 (tests/test_marg_prior.py's eviction scenario), `use_marg_prior` on, window
-BA inline at `ba_assembly_precision: f32`; its carry is copied after frame 0
+BA inline at `ba_assembly_precision: f32` on both sides; its carry is copied after frame 0
 (the init map), frame 3 (the window full, information stored, no prior yet)
 and frame 5 (a prior in use).  The window's gauge is free until the first
 eviction and only partly held after it, so the `VisualOdometry` runs are compared by
@@ -41,7 +41,7 @@ from legoslam_tpu_torch.solver import lm, marginalization
 from legoslam_tpu_torch.utils import evaluation
 from legoslam_tpu_torch.utils.config import Config
 from tests.test_torch_backend import _jtree
-from tests.test_torch_vo import N_FRAMES, OVERRIDES, _dataset
+from tests.test_torch_vo import F32, N_FRAMES, OVERRIDES, _dataset
 from tests.torch_parity import j, t, to_numpy, tree_to_numpy, window_gap
 
 TINY = {**OVERRIDES, "keyframe_window_capacity": 5, "num_active_keyframes": 4, "max_keyframe_gap": 1,
@@ -141,7 +141,7 @@ def ref():
 def run_reference_tiny():
     """The reference's tiny-window run (see the module docstring)."""
     ds = _dataset(JDataset)
-    vo = JVisualOdometry(config=JConfig({**TINY, "ba_assembly_precision": "f32"}), dataset=ds)
+    vo = JVisualOdometry(config=JConfig({**TINY, **F32}), dataset=ds)
     assert vo.ba_mode == "inline" and vo.init()
     carries = {}
     for k in range(N_FRAMES):
@@ -281,7 +281,7 @@ def test_tiny_window_run_matches_reference(ref):
     window's poses relative to its oldest keyframe (`python -m
     tests.ba_parity_report --isa-spread`; the prior holds the gauge only in
     part); the bars are 0.15 m and 0.035, under twice those spreads."""
-    vo = VisualOdometry(config=Config(TINY), dataset=_dataset(TDataset), device="cpu")
+    vo = VisualOdometry(config=Config({**TINY, **F32}), dataset=_dataset(TDataset), device="cpu")
     assert vo.init()
     vo.run()
     np.testing.assert_array_equal(vo.statuses(), ref["statuses"])

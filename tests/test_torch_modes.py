@@ -68,7 +68,7 @@ from legoslam_tpu_torch.pipeline.dataset import SyntheticPlanesDataset as TDatas
 from legoslam_tpu_torch.pipeline.visual_odometry import FrontendStatus, VisualOdometry
 from legoslam_tpu_torch.utils import evaluation
 from legoslam_tpu_torch.utils.config import Config
-from tests.test_torch_vo import N_FRAMES, OVERRIDES, _dataset
+from tests.test_torch_vo import F32, N_FRAMES, OVERRIDES, _dataset
 from tests.torch_parity import agreement, assert_close, j, t, to_numpy, tree_to_numpy
 
 HANDOVER = 7
@@ -87,7 +87,7 @@ def run_reference(mode, handover=None):
     its carry (and the jitted step's input frame) copied after that many
     frames."""
     ds = _dataset(JDataset)
-    vo = JVisualOdometry(config=JConfig({**OVERRIDES, "ba_assembly_precision": "f32", **MODES[mode]}), dataset=ds)
+    vo = JVisualOdometry(config=JConfig({**OVERRIDES, **F32, **MODES[mode]}), dataset=ds)
     assert vo.ba_mode == "inline" and vo.init()
     carry = None
     for k in range(N_FRAMES):
@@ -122,7 +122,7 @@ def reference_strategy1():
 
 def _run_port(mode):
     ds = _dataset(TDataset)
-    vo = VisualOdometry(config=Config({**OVERRIDES, **MODES[mode]}), dataset=ds, device="cpu")
+    vo = VisualOdometry(config=Config({**OVERRIDES, **F32, **MODES[mode]}), dataset=ds, device="cpu")
     assert vo.ba_mode == "inline" and vo.init()
     vo.run()
     return vo, ds

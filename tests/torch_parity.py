@@ -104,3 +104,42 @@ def window_gap(win_a, win_b) -> float:
         return (T @ np.linalg.inv(T[oldest]))[valid]
 
     return float(np.abs(relative(win_a["kf_pose"]) - relative(win_b["kf_pose"])).max())
+
+
+def flat(d, prefix=""):
+    """A nested dict of arrays as one level, keys joined by "/" (for npz)."""
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, dict):
+            out.update(flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def compact_window(d):
+    """The world map `d` (NumPy, by field) cut to the landmarks its window's
+    keyframes hold, renumbered in id order: the window and its landmarks,
+    not the 131,072-slot table."""
+    ids = np.unique(d["kf_lm"][d["kf_valid"][:, None] & (d["kf_lm"] >= 0)])
+    remap = np.full(len(d["lm_pos"]), -1, np.int64)
+    remap[ids] = np.arange(len(ids))
+    out = {k: v[ids] if k.startswith("lm_") and np.ndim(v) >= 1 else v for k, v in d.items()}
+    out["kf_lm"] = np.where(d["kf_lm"] >= 0, remap[np.maximum(d["kf_lm"], 0)], -1).astype(d["kf_lm"].dtype)
+    out["lm_next"] = np.asarray(len(ids), np.asarray(d["lm_next"]).dtype)
+    return out
+
+
+def load_kitti_window(path):
+    """(world map by field, [P0, P1], frame) of a file that `python -m
+    tests.ba_parity_report --kitti-window SEQ FRAME --save OUT` wrote."""
+    with np.load(path) as z:
+        d = {}
+        for k in z.files:
+            if k.startswith("wmap/"):
+                node, *rest = k[len("wmap/"):].split("/")
+                if rest:
+                    d.setdefault(node, {})[rest[0]] = z[k]
+                else:
+                    d[node] = z[k]
+        return d, [z["P0"], z["P1"]], int(z["frame"])
