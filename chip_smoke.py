@@ -226,6 +226,7 @@ LAP_SIDE, LAP_TURN, LAP_SPEED, LAP_LAPS, LAP_TAIL = 32, 24, 0.3, 2, 4
 # photometric noise 1.5; read at half resolution (188x620) by the port's CLI.
 SOAK_SHAPE, SOAK_FOCAL, SOAK_BASELINE, SOAK_FRAMES, SOAK_SPEED = (376, 1240), 720.0, 0.54, 1000, 0.3
 SOAK_HALF_WIDTH = 12.0
+SOAK_COURSES = ("s_curve", "level")  # soak_trajectory's courses; step 10 drives the first
 KITTI_FRAMES = 150
 RESUME_FRAMES, RESUME_AT = 60, 30   # step 11: 60 frames, stopped and resumed after 30
 # The JAX reference's run of those 150 frames through its own command line
@@ -395,12 +396,19 @@ def lap_world(laps=LAP_LAPS, tail=LAP_TAIL):
 LAP = ("lap", LAP_LAPS, LAP_TAIL)
 
 
-def soak_trajectory(n=SOAK_FRAMES, speed=SOAK_SPEED):
-    """T_wc of the soak's S-curve (tests/test_kitti_soak.py's
-    `_s_curve_trajectory`): forward at `speed` m/frame with a gentle
-    alternating yaw."""
+def soak_trajectory(n=SOAK_FRAMES, speed=SOAK_SPEED, course="s_curve"):
+    """T_wc of a soak course: forward at `speed` m/frame with a gentle
+    alternating yaw.  "s_curve" is tests/test_kitti_soak.py's
+    `_s_curve_trajectory` (dyaw = 0.0018 sin(2 pi k / 320): the heading
+    swings between 0 and +0.18 rad, so the camera leaves the 12 m corridor
+    at frame 460); "level" turns by 0.0018 cos(2 pi k / 320), a heading of
+    +-0.092 rad about the corridor's axis, and stays within 3.02 m of it
+    (but drives through two occluders, ROADMAP C14)."""
     k = np.arange(n)
-    dyaw = 0.0018 * np.sin(2 * np.pi * k / 320.0)
+    if course not in SOAK_COURSES:
+        raise ValueError(f"unknown soak course {course!r} ({' | '.join(SOAK_COURSES)})")
+    wave = np.sin if course == "s_curve" else np.cos
+    dyaw = 0.0018 * wave(2 * np.pi * k / 320.0)
     poses, pos, yaw = [], np.zeros(3), 0.0
     for dy in dyaw:
         c, s = np.cos(yaw), np.sin(yaw)
@@ -413,22 +421,24 @@ def soak_trajectory(n=SOAK_FRAMES, speed=SOAK_SPEED):
     return np.stack(poses)
 
 
-def soak_world(n=SOAK_FRAMES):
-    """The soak's world (tests/test_kitti_soak.py's `_make_dataset`), its
-    first `n` frames: frame i renders to the same bytes for any n."""
+def soak_world(n=SOAK_FRAMES, course="s_curve"):
+    """The soak's world (tests/test_kitti_soak.py's `_make_dataset`) seen
+    from `course`, its first `n` frames: frame i renders to the same bytes
+    for any n."""
     from legoslam_tpu_torch.pipeline.dataset import SyntheticPlanesDataset
 
     return SyntheticPlanesDataset(shape=SOAK_SHAPE, focal=SOAK_FOCAL, baseline=SOAK_BASELINE, half_width=SOAK_HALF_WIDTH,
                                   length=SOAK_FRAMES * SOAK_SPEED + 60.0, z_min=-20.0,
-                                  trajectory=soak_trajectory()[:n], n_occluders=6, photometric_noise=1.5)
+                                  trajectory=soak_trajectory(course=course)[:n], n_occluders=6,
+                                  photometric_noise=1.5)
 
 
-def write_soak_chunk(root, indices):
-    """Render frames `indices` of the soak world and write them as KITTI
-    PNGs under `root` (runs in a worker process)."""
+def write_soak_chunk(root, indices, course="s_curve"):
+    """Render frames `indices` of the soak world on `course` and write them
+    as KITTI PNGs under `root` (runs in a worker process)."""
     from legoslam_tpu_torch.pipeline.dataset import write_kitti_frame
 
-    ds = soak_world(max(indices) + 1)
+    ds = soak_world(max(indices) + 1, course)
     for i in indices:
         ds.current_index = i
         fr = ds.next_frame()
@@ -436,18 +446,18 @@ def write_soak_chunk(root, indices):
     return len(indices)
 
 
-def start_soak_sequence(pool, workers: int, root: str, n: int):
-    """Write calib.txt and poses.txt of the soak's first `n` frames under
-    `root` and submit its frames to the pool; returns a function that waits
-    for them."""
+def start_soak_sequence(pool, workers: int, root: str, n: int, course="s_curve"):
+    """Write calib.txt and poses.txt of the soak's first `n` frames on
+    `course` under `root` and submit its frames to the pool; returns a
+    function that waits for them."""
     from legoslam_tpu_torch.pipeline.dataset import write_kitti_sequence
 
     H, W = SOAK_SHAPE
     P0 = np.array([[SOAK_FOCAL, 0.0, W / 2.0, 0.0], [0.0, SOAK_FOCAL, H / 2.0, 0.0], [0.0, 0.0, 1.0, 0.0]])
     P1 = P0.copy()
     P1[0, 3] = -SOAK_FOCAL * SOAK_BASELINE
-    write_kitti_sequence(root, P0, P1, soak_trajectory()[:n])
-    futs = [pool.submit(write_soak_chunk, root, list(range(w, n, workers))) for w in range(workers)]
+    write_kitti_sequence(root, P0, P1, soak_trajectory(course=course)[:n])
+    futs = [pool.submit(write_soak_chunk, root, list(range(w, n, workers)), course) for w in range(workers)]
 
     def gather():
         if sum(f.result() for f in futs) != n:

@@ -28,10 +28,10 @@
 // sample the 81 points of the halo window between them (3 each, bilinear,
 // clamped as ops/interp.py), stage them in the warp's shared memory,
 // __syncwarp, and then take the 49 residual and gradient terms between them
-// (2 at most each).  A fixed-order xor butterfly of the six sums leaves the
-// same totals in every lane (a + b == b + a), so the 2x2 update, the
-// divergence and convergence tests and the early exit run redundantly in
-// all lanes and the loop stays warp-uniform with no broadcast.  Each level
+// (2 at most each) into shared memory; six lanes then add up one quantity
+// each over the 49 terms in row-major order and broadcast the six sums, so
+// the 2x2 update, the divergence and convergence tests and the early exit
+// run redundantly in all lanes and the loop stays warp-uniform.  Each level
 // gets the original `valid`, a failed lane restarts the next level from its
 // initial guess, and a lane leaves the GN loop as soon as it stops
 // (inactive lanes are frozen in the reference, so a per-lane exit gives the
@@ -40,6 +40,13 @@
 // texture unit's 8-bit filter weights would be too coarse).  The GN
 // iterations summed over lanes and levels go to an optional counter (the
 // work count behind the bound).
+//
+// Rounding is the reference's as XLA compiles it for a CPU (ops/rounding.py,
+// ops/interp.py): the 49-term sums in row-major order, one add at a time;
+// no contracted multiply-adds (the source is built with -fmad=false), but
+// for the bilinear row pass on the levels whose bit is set in
+// `Pyramid::fused_rows`, rounded as one fused multiply-add; the ZNCC means
+// as a multiply by the float32 reciprocal of 49.
 //
 // Frame mode (klt_pyramid_frame_kernel) is the other path into the same two
 // Pallas kernels: legoslam_tpu/ops/klt.py klt_pyramid (:179-226), which
@@ -72,6 +79,7 @@ struct Pyramid {
   const float* level[kMaxLevels];
   int height[kMaxLevels];
   int width[kMaxLevels];
+  int fused_rows;  // bit l: level l's row pass is one fused multiply-add (ops/interp.py)
 };
 
 // ops/interp.py axis_taps: clamp to [0, size-1], floor, second tap clamped.
@@ -85,34 +93,43 @@ __device__ __forceinline__ void axis_tap(float pos, int size, int& i0, int& i1, 
 }
 
 // One bilinear sample at (x, y): along y first, then x (ops/interp.py
-// sample_grid).
+// sample_grid); `fused`: the row pass is fma(fy, b, (1 - fy) a).
 __device__ __forceinline__ float sample(const float* __restrict__ img, int H, int W, float y,
-                                        float x) {
+                                        float x, bool fused) {
   int y0, y1, x0, x1;
   float fy, fx;
   axis_tap(y, H, y0, y1, fy);
   axis_tap(x, W, x0, x1, fx);
   const float* r0 = img + (long long)y0 * W;
   const float* r1 = img + (long long)y1 * W;
-  const float left = (1.0f - fy) * __ldg(r0 + x0) + fy * __ldg(r1 + x0);
-  const float right = (1.0f - fy) * __ldg(r0 + x1) + fy * __ldg(r1 + x1);
+  const float gy = 1.0f - fy;
+  const float a0 = __ldg(r0 + x0), a1 = __ldg(r1 + x0), b0 = __ldg(r0 + x1), b1 = __ldg(r1 + x1);
+  const float left = fused ? __fmaf_rn(fy, a1, gy * a0) : gy * a0 + fy * a1;
+  const float right = fused ? __fmaf_rn(fy, b1, gy * b0) : gy * b0 + fy * b1;
   return (1.0f - fx) * left + fx * right;
 }
 
-// Xor butterfly over the warp: every lane ends with the same N sums.
+// The warp's N sums of `terms` (N rows of kTerms in shared memory), each
+// added one term at a time in row-major order by lane q < N, then
+// broadcast to every lane.  The caller __syncwarp()s after writing terms.
 template <int N>
-__device__ __forceinline__ void warp_allreduce(float (&v)[N]) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-    for (int q = 0; q < N; ++q) v[q] += __shfl_xor_sync(kFull, v[q], off);
+__device__ __forceinline__ void ordered_sums(const float (*terms)[kTerms], float (&out)[N]) {
+  const int lane = threadIdx.x & 31;
+  float acc = 0.0f;
+  if (lane < N) {
+    acc = terms[lane][0];
+#pragma unroll 7
+    for (int t = 1; t < kTerms; ++t) acc += terms[lane][t];
   }
+#pragma unroll
+  for (int q = 0; q < N; ++q) out[q] = __shfl_sync(kFull, acc, q);
 }
 
 // Select one level of a pyramid with constant indices: indexing the parameter
 // struct by `level` would copy it to the stack.
 __device__ __forceinline__ void select_level(const Pyramid& pyr, int level, const float*& img,
-                                             int& H, int& W) {
+                                             int& H, int& W, bool& fused) {
+  fused = (pyr.fused_rows >> level) & 1;
   img = pyr.level[0];
   H = pyr.height[0];
   W = pyr.width[0];
@@ -141,12 +158,14 @@ __device__ __forceinline__ void klt_pyramid_body(
   // Each warp reads and writes only its own rows: no block barrier.
   __shared__ float s_tpl[kWarpsPerBlock][kWindow];
   __shared__ float s_win[kWarpsPerBlock][kWindow];
+  __shared__ float s_terms[kWarpsPerBlock][6][kTerms];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int i = blockIdx.x * kWarpsPerBlock + warp;
   if (i >= n) return;  // the whole warp leaves together
   float* tpl = s_tpl[warp];
   float* win = s_win[warp];
+  float(*terms)[kTerms] = s_terms[warp];
 
   const bool v = valid[i] != 0;
   float k1x = anchor_uv[2 * i] * scale_top, k1y = anchor_uv[2 * i + 1] * scale_top;
@@ -159,21 +178,23 @@ __device__ __forceinline__ void klt_pyramid_body(
   for (int level = levels - 1; level >= 0; --level) {
     const float* img;
     int H, W;
-    select_level(pyr, level, img, H, W);
+    bool fused;
+    select_level(pyr, level, img, H, W, fused);
     __syncwarp();  // the previous level's reads of tpl are done
     if constexpr (kFrame) {
       // The template is the first image's halo window at kp1 on this level
       // (ops/klt.py:209-210: interp.sample_patches(img1, kp1l, halo)).
       const float* img1;
       int H1, W1;
-      select_level(pyr1, level, img1, H1, W1);
+      bool fused1;
+      select_level(pyr1, level, img1, H1, W1, fused1);
       const float tx0 = k1x - half, ty0 = k1y - half;
 #pragma unroll
       for (int j = 0; j < (kWindow + 31) / 32; ++j) {
         const int q = lane + 32 * j;
         if (q < kWindow) {
           const int r = q / kHalo, c = q - r * kHalo;
-          tpl[q] = sample(img1, H1, W1, ty0 + (float)r, tx0 + (float)c);
+          tpl[q] = sample(img1, H1, W1, ty0 + (float)r, tx0 + (float)c, fused1);
         }
       }
     } else {
@@ -190,11 +211,13 @@ __device__ __forceinline__ void klt_pyramid_body(
         const int q = (r + 1) * kHalo + c + 1;
         const float jx = -(0.5f * (tpl[q + 1] - tpl[q - 1]));
         const float jy = -(0.5f * (tpl[q + kHalo] - tpl[q - kHalo]));
-        Hfix[0] += jx * jx;
-        Hfix[1] += jx * jy;
-        Hfix[2] += jy * jy;
+        terms[0][t] = jx * jx;
+        terms[1][t] = jx * jy;
+        terms[2][t] = jy * jy;
       }
-      warp_allreduce(Hfix);
+      __syncwarp();
+      ordered_sums(terms, Hfix);
+      __syncwarp();  // terms is rewritten below
     }
 
     float dx = k2x - k1x, dy = k2y - k1y;
@@ -210,12 +233,11 @@ __device__ __forceinline__ void klt_pyramid_body(
         const int q = lane + 32 * j;
         if (q < kWindow) {
           const int r = q / kHalo, c = q - r * kHalo;
-          win[q] = sample(img, H, W, y0 + (float)r, x0 + (float)c);
+          win[q] = sample(img, H, W, y0 + (float)r, x0 + (float)c, fused);
         }
       }
       __syncwarp();
-      // cost, h00, h01, h11, bx, by
-      float sum[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      // cost, h00, h01, h11, bx, by: the terms, then their ordered sums
 #pragma unroll
       for (int j = 0; j < (kTerms + 31) / 32; ++j) {
         const int t = lane + 32 * j;
@@ -230,16 +252,18 @@ __device__ __forceinline__ void klt_pyramid_body(
         } else {
           jx = -(0.5f * (win[q + 1] - win[q - 1]));
           jy = -(0.5f * (win[q + kHalo] - win[q - kHalo]));
-          sum[1] += jx * jx;
-          sum[2] += jx * jy;
-          sum[3] += jy * jy;
+          terms[1][t] = jx * jx;
+          terms[2][t] = jx * jy;
+          terms[3][t] = jy * jy;
         }
-        sum[0] += err * err;
-        sum[4] += -err * jx;
-        sum[5] += -err * jy;
+        terms[0][t] = err * err;
+        terms[4][t] = -err * jx;
+        terms[5][t] = -err * jy;
       }
-      __syncwarp();  // win is rewritten by the next iteration
-      warp_allreduce(sum);
+      __syncwarp();  // terms are written; win is read no more this iteration
+      float sum[6];
+      ordered_sums(terms, sum);
+      __syncwarp();  // terms and win are rewritten by the next iteration
       const float cost = sum[0];
       const float h00 = inverse ? Hfix[0] : sum[1];
       const float h01 = inverse ? Hfix[1] : sum[2];
@@ -282,37 +306,44 @@ __device__ __forceinline__ void klt_pyramid_body(
 
   if (!kFrame && min_zncc > 0.0f) {
     // ZNCC of the level-0 template core against the patch at the result
-    // (ops/klt.py:371-379); tpl still holds level 0.  Each lane keeps its
+    // (ops/klt.py zncc_gate); tpl still holds level 0.  Each lane keeps its
     // (at most 2) terms in registers between the two passes.
     const float* img = pyr.level[0];
     const int H = pyr.height[0], W = pyr.width[0];
+    const bool fused = pyr.fused_rows & 1;
     const float hp = (float)kPatch * 0.5f - 0.5f;
     float t0[2] = {0.0f, 0.0f}, t1[2] = {0.0f, 0.0f};
-    float m[2] = {0.0f, 0.0f};  // sums of the template core and the patch
+    __syncwarp();  // the last GN iteration's reads of terms are done
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int t = lane + 32 * j;
       if (t < kTerms) {
         const int r = t / kPatch, c = t - r * kPatch;
         t0[j] = tpl[(r + 1) * kHalo + c + 1];
-        t1[j] = sample(img, H, W, k2y - hp + (float)r, k2x - hp + (float)c);
-        m[0] += t0[j];
-        m[1] += t1[j];
+        t1[j] = sample(img, H, W, k2y - hp + (float)r, k2x - hp + (float)c, fused);
+        terms[0][t] = t0[j];
+        terms[1][t] = t1[j];
       }
     }
-    warp_allreduce(m);
-    const float m0 = m[0] / (float)kTerms, m1 = m[1] / (float)kTerms;
-    float q[3] = {0.0f, 0.0f, 0.0f};  // num, q0, q1
+    __syncwarp();
+    float m[2];  // sums of the template core and the patch
+    ordered_sums(terms, m);
+    __syncwarp();
+    const float inv_n = 1.0f / (float)kTerms;  // the mean as XLA takes it: times the reciprocal
+    const float m0 = m[0] * inv_n, m1 = m[1] * inv_n;
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      if (lane + 32 * j < kTerms) {
+      const int t = lane + 32 * j;
+      if (t < kTerms) {
         const float c0 = t0[j] - m0, c1 = t1[j] - m1;
-        q[0] += c0 * c1;
-        q[1] += c0 * c0;
-        q[2] += c1 * c1;
+        terms[0][t] = c0 * c1;
+        terms[1][t] = c0 * c0;
+        terms[2][t] = c1 * c1;
       }
     }
-    warp_allreduce(q);
+    __syncwarp();
+    float q[3];  // num, q0, q1
+    ordered_sums(terms, q);
     const float den = sqrtf(q[1] * q[2] + 1e-6f);
     succ = succ && (q[0] / den > min_zncc);
   }
@@ -346,8 +377,9 @@ __global__ void __launch_bounds__(kThreads) klt_pyramid_frame_kernel(
 }
 
 Pyramid make_pyramid(const float* const* level_ptr, const int* level_height,
-                     const int* level_width, int levels) {
+                     const int* level_width, int levels, int fused_rows) {
   Pyramid pyr{};
+  pyr.fused_rows = fused_rows;
   for (int l = 0; l < levels; ++l) {
     pyr.level[l] = level_ptr[l];
     pyr.height[l] = level_height[l];
@@ -360,7 +392,7 @@ Pyramid make_pyramid(const float* const* level_ptr, const int* level_height,
 
 extern "C" int legoslam_klt_pyramid_anchored(
     const float* anchors, int anchor_levels, const float* const* level_ptr,
-    const int* level_height, const int* level_width, int levels, const float* anchor_uv,
+    const int* level_height, const int* level_width, int levels, int fused_rows, const float* anchor_uv,
     const float* guess, const uint8_t* valid, int n, int half_patch, int iterations, float eps2,
     float scale, float scale_top, int inverse, float min_zncc, float* kp_out, uint8_t* ok_out,
     int* gn_iterations, void* stream) {
@@ -369,7 +401,7 @@ extern "C" int legoslam_klt_pyramid_anchored(
     return (int)cudaErrorInvalidValue;
   }
   if (n == 0) return 0;
-  const Pyramid pyr = make_pyramid(level_ptr, level_height, level_width, levels);
+  const Pyramid pyr = make_pyramid(level_ptr, level_height, level_width, levels, fused_rows);
   const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
   klt_pyramid_anchored_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       anchors, anchor_levels, pyr, levels, anchor_uv, guess, valid, n, iterations, eps2, scale,
@@ -378,11 +410,12 @@ extern "C" int legoslam_klt_pyramid_anchored(
 }
 
 // Frame mode: both pyramids as per-level pointers (finest first), `levels`
-// of each; kp1 are the keypoints in the first image, guess their initial
-// positions in the second.
+// of each, with their fused-row bits; kp1 are the keypoints in the first
+// image, guess their initial positions in the second.
 extern "C" int legoslam_klt_pyramid_frame(
     const float* const* level1_ptr, const int* level1_height, const int* level1_width,
-    const float* const* level2_ptr, const int* level2_height, const int* level2_width, int levels,
+    int fused_rows1, const float* const* level2_ptr, const int* level2_height,
+    const int* level2_width, int fused_rows2, int levels,
     const float* kp1, const float* guess, const uint8_t* valid, int n, int half_patch,
     int iterations, float eps2, float scale, float scale_top, int inverse, float* kp_out,
     uint8_t* ok_out, int* gn_iterations, void* stream) {
@@ -390,8 +423,8 @@ extern "C" int legoslam_klt_pyramid_frame(
     return (int)cudaErrorInvalidValue;
   }
   if (n == 0) return 0;
-  const Pyramid pyr1 = make_pyramid(level1_ptr, level1_height, level1_width, levels);
-  const Pyramid pyr2 = make_pyramid(level2_ptr, level2_height, level2_width, levels);
+  const Pyramid pyr1 = make_pyramid(level1_ptr, level1_height, level1_width, levels, fused_rows1);
+  const Pyramid pyr2 = make_pyramid(level2_ptr, level2_height, level2_width, levels, fused_rows2);
   const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
   klt_pyramid_frame_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       pyr1, pyr2, levels, kp1, guess, valid, n, iterations, eps2, scale, scale_top, inverse,

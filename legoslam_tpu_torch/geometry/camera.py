@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from legoslam_tpu_torch.geometry import se3
+from legoslam_tpu_torch.ops.rounding import div_const
 
 
 def _f32(x) -> float:
@@ -74,8 +75,8 @@ class Camera:
         depth = torch.as_tensor(depth, dtype=p_p.dtype, device=p_p.device)
         return torch.stack(
             [
-                (p_p[..., 0] - self.cx) / self.fx * depth,
-                (p_p[..., 1] - self.cy) / self.fy * depth,
+                div_const(p_p[..., 0] - self.cx, self.fx) * depth,
+                div_const(p_p[..., 1] - self.cy, self.fy) * depth,
                 torch.broadcast_to(depth, p_p[..., 0].shape),
             ],
             dim=-1,

@@ -4,7 +4,8 @@ Each source is compiled on first use with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 
-into `legoslam_tpu_torch/_build/lib<name>-<hash>.so`, where the hash covers
+plus the source's own flags in SOURCE_FLAGS, into
+`legoslam_tpu_torch/_build/lib<name>-<hash>.so`, where the hash covers
 the source and the flags, so an edited source is never served a stale
 library.  The library is loaded with ctypes; every entry point takes raw
 device pointers and the CUDA stream as `void*` and returns the
@@ -31,6 +32,10 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC",
 ]
 
+# K1 rounds as the reference's XLA code does, which contracts no
+# multiply-add (csrc/klt_anchored.cu asks for its one fused multiply-add).
+SOURCE_FLAGS = {"klt_anchored": ["-fmad=false"]}
+
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
@@ -41,9 +46,13 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
 
 
+def _flags(name: str):
+    return [*NVCC_FLAGS, *SOURCE_FLAGS.get(name, [])]
+
+
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src + " ".join(_flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -58,7 +67,7 @@ def load(name: str) -> ctypes.CDLL:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         try:
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+            cmd = [_nvcc(), *_flags(name), "-o", tmp, str(CSRC / f"{name}.cu")]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}\n{proc.stderr}")

@@ -18,6 +18,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from legoslam_tpu_torch.kernels import _build
+from legoslam_tpu_torch.ops import interp
 from legoslam_tpu_torch.ops import klt as klt_ops
 
 # csrc/klt_anchored.cu is compiled for this template size only.
@@ -66,10 +67,10 @@ def _lib():
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.restype = ctypes.c_int
-        fn.argtypes = [p, i, p, p, p, i, p, p, p, i, i, i, f, f, f, i, f, p, p, p, p]
+        fn.argtypes = [p, i, p, p, p, i, i, p, p, p, i, i, i, f, f, f, i, f, p, p, p, p]
         fn = lib.legoslam_klt_pyramid_frame
         fn.restype = ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, p, p, p, i, i, i, f, f, f, i, p, p, p, p]
+        fn.argtypes = [p, p, p, i, p, p, p, i, i, p, p, p, i, i, i, f, f, f, i, p, p, p, p]
     return lib
 
 
@@ -80,13 +81,16 @@ def _require(cond: bool, msg: str) -> None:
 
 def _level_arrays(pyr: Sequence[torch.Tensor], levels: int, dev, what: str):
     """The levels as the C arrays the entry points take (pointer, height,
-    width per level); each level must be a contiguous 2-D float32 tensor."""
+    width per level) and the bits of the levels whose bilinear row pass is
+    one fused multiply-add (`interp.fused_rows`); each level must be a
+    contiguous 2-D float32 tensor."""
     for k, lvl in enumerate(pyr[:levels]):
         _require(lvl.dim() == 2 and lvl.dtype == torch.float32 and lvl.device == dev
                  and lvl.is_contiguous(), f"{what} level {k} must be a contiguous 2-D float32 tensor on {dev}")
     return ((ctypes.c_void_p * levels)(*[lvl.data_ptr() for lvl in pyr[:levels]]),
             (ctypes.c_int * levels)(*[lvl.shape[0] for lvl in pyr[:levels]]),
-            (ctypes.c_int * levels)(*[lvl.shape[1] for lvl in pyr[:levels]]))
+            (ctypes.c_int * levels)(*[lvl.shape[1] for lvl in pyr[:levels]]),
+            sum(int(interp.fused_rows(lvl.shape)) << k for k, lvl in enumerate(pyr[:levels])))
 
 
 def _check_counter(gn_iterations: Optional[torch.Tensor], dev) -> None:
@@ -124,14 +128,14 @@ def klt_pyramid_anchored_kernel(
         _require(t.device == dev and t.is_contiguous(), f"{name} must be contiguous on {dev}")
     for name, t in (("anchors", anchors), ("anchor_uv", anchor_uv), ("kp2_init", kp2_init)):
         _require(t.dtype == torch.float32, f"{name} must be float32")
-    lvl_ptr, h_arr, w_arr = _level_arrays(pyr2, levels, dev, "pyramid")
+    lvl_ptr, h_arr, w_arr, fused = _level_arrays(pyr2, levels, dev, "pyramid")
     _check_counter(gn_iterations, dev)
     kp_out = torch.empty((n, 2), dtype=torch.float32, device=dev)
     ok_out = torch.empty((n,), dtype=torch.bool, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _lib()
     rc = lib.legoslam_klt_pyramid_anchored(
-        anchors.data_ptr(), anchors.shape[1], lvl_ptr, h_arr, w_arr, levels,
+        anchors.data_ptr(), anchors.shape[1], lvl_ptr, h_arr, w_arr, levels, fused,
         anchor_uv.data_ptr(), kp2_init.data_ptr(), valid.data_ptr(), n, cfg.half_patch,
         cfg.iterations, float(cfg.eps * cfg.eps), float(cfg.scale),
         float(cfg.scale ** (levels - 1)), int(bool(cfg.inverse)), float(min_zncc),
@@ -217,8 +221,8 @@ def klt_pyramid_kernel(
         _require(t.device == dev and t.is_contiguous(), f"{name} must be contiguous on {dev}")
     for name, t in (("kp1", kp1), ("kp2_init", kp2_init)):
         _require(t.dtype == torch.float32, f"{name} must be float32")
-    ptr1, h1, w1 = _level_arrays(pyr1, levels, dev, "first pyramid")
-    ptr2, h2, w2 = _level_arrays(pyr2, levels, dev, "second pyramid")
+    ptr1, h1, w1, fused1 = _level_arrays(pyr1, levels, dev, "first pyramid")
+    ptr2, h2, w2, fused2 = _level_arrays(pyr2, levels, dev, "second pyramid")
     _check_counter(gn_iterations, dev)
 
     kp_out = torch.empty((n, 2), dtype=torch.float32, device=dev)
@@ -226,7 +230,8 @@ def klt_pyramid_kernel(
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _lib()
     rc = lib.legoslam_klt_pyramid_frame(
-        ptr1, h1, w1, ptr2, h2, w2, levels, kp1.data_ptr(), kp2_init.data_ptr(), valid.data_ptr(), n,
+        ptr1, h1, w1, fused1, ptr2, h2, w2, fused2, levels, kp1.data_ptr(), kp2_init.data_ptr(),
+        valid.data_ptr(), n,
         cfg.half_patch, cfg.iterations, float(cfg.eps * cfg.eps), float(cfg.scale),
         float(cfg.scale ** (levels - 1)), int(bool(cfg.inverse)), kp_out.data_ptr(), ok_out.data_ptr(),
         None if gn_iterations is None else gn_iterations.data_ptr(), stream,

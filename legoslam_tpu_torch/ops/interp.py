@@ -6,6 +6,18 @@ a direct gather.  Border behaviour is the reference's (`GetPixelValue`,
 algorithm.h:42-45): per axis the sample position is clamped to
 [0, size - 1], the first tap is its floor and the second tap
 `min(i0 + 1, size - 1)`; rows are interpolated first, then columns.
+
+Rounding is the reference's too.  XLA's CPU backend computes the row pass
+(`Ry @ img`, two nonzero weights a row) as w0*a + w1*b with each product
+rounded, except on images of the shapes in FUSED_ROW_SHAPES, where it
+rounds it as one fused multiply-add, fma(w1, b, round(w0*a)); the column
+pass has every product rounded.  Which shapes is XLA's choice, the same
+under `--xla_cpu_max_isa` unset, AVX2 and SSE4_2 and for any lane count,
+measured bit for bit on each pyramid level the repo's worlds build
+(188x620, 160x240, 120x200 and their levels; 376x1240).  On KITTI at half
+resolution that is level 1 (94x310), where the port's plain products moved
+a tracked lane by up to 3.8e-3 px from every setting, which agree to 6.1e-5
+px (ROADMAP C15).
 """
 
 from __future__ import annotations
@@ -13,6 +25,27 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+# (H, W) of the images whose row pass the reference rounds as a fused
+# multiply-add (the module docstring); every other measured level
+# (188x620, 47x155, 23x77, 160x240, 20x30, 120x200, 60x100, 15x25,
+# 376x1240) rounds each product.
+FUSED_ROW_SHAPES = frozenset({(94, 310), (80, 120), (40, 60), (30, 50)})
+
+
+def fused_rows(shape) -> bool:
+    """Whether the row pass on an image of `shape` is rounded as an FMA."""
+    return tuple(shape) in FUSED_ROW_SHAPES
+
+
+def _lerp(w0: torch.Tensor, a: torch.Tensor, w1: torch.Tensor, b: torch.Tensor, fused: bool) -> torch.Tensor:
+    """w0*a + w1*b in float32: each product rounded, or (`fused`) rounded as
+    fma(w1, b, round(w0*a)); the float64 product of two float32 values is
+    exact, so the sum is rounded once but for a double rounding in float64,
+    which needs a tie at float32 precision (never seen on a pyramid)."""
+    if not fused:
+        return w0 * a + w1 * b
+    return (w1.double() * b.double() + (w0 * a).double()).float()
 
 
 def axis_taps(start: torch.Tensor, size: int, count: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -42,8 +75,9 @@ def sample_grid(img: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor, rows: int
     r1 = img[yi1[:, :, None], xi0[:, None, :]]
     s0 = img[yi0[:, :, None], xi1[:, None, :]]
     s1 = img[yi1[:, :, None], xi1[:, None, :]]
-    left = (1.0 - fy) * r0 + fy * r1
-    right = (1.0 - fy) * s0 + fy * s1
+    fused = fused_rows(img.shape)
+    left = _lerp(1.0 - fy, r0, fy, r1, fused)
+    right = _lerp(1.0 - fy, s0, fy, s1, fused)
     fx = fx[:, None, :]
     return (1.0 - fx) * left + fx * right
 

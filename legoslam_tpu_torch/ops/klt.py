@@ -22,6 +22,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from legoslam_tpu_torch.ops import interp, pyramid
+from legoslam_tpu_torch.ops.rounding import patch_mean, patch_sum
 
 
 class KLTConfig(NamedTuple):
@@ -59,10 +60,6 @@ def _grad_patches(big: torch.Tensor):
     return val, gx, gy
 
 
-def _psum(x: torch.Tensor) -> torch.Tensor:
-    return x.sum(dim=(1, 2))
-
-
 def extract_anchors(pyr: Sequence[torch.Tensor], kp: torch.Tensor, cfg: KLTConfig = KLTConfig()) -> torch.Tensor:
     """Sample per-level halo patches around kp: (N, levels, P+2, P+2)."""
     halo = 2 * cfg.half_patch + 3
@@ -90,25 +87,20 @@ def klt_level_anchored(
     p1, gx1, gy1 = _grad_patches(anchor)
     if cfg.inverse:
         Jx_fix, Jy_fix = -gx1, -gy1
-        H00 = _psum(Jx_fix * Jx_fix)
-        H01 = _psum(Jx_fix * Jy_fix)
-        H11 = _psum(Jy_fix * Jy_fix)
+        H00, H01, H11 = patch_sum(torch.stack([Jx_fix * Jx_fix, Jx_fix * Jy_fix, Jy_fix * Jy_fix]))
 
     def body(st):
         d, last_cost, succ, active = st
         p2, gx2, gy2 = _grad_patches(interp.sample_patches(img2, kp1 + d, halo))
         err = p1 - p2
-        cost = _psum(err * err)
         if cfg.inverse:
             Jx, Jy = Jx_fix, Jy_fix
+            cost, bx, by = patch_sum(torch.stack([err * err, -err * Jx, -err * Jy]))
             h00, h01, h11 = H00, H01, H11
         else:
             Jx, Jy = -gx2, -gy2
-            h00 = _psum(Jx * Jx)
-            h01 = _psum(Jx * Jy)
-            h11 = _psum(Jy * Jy)
-        bx = _psum(-err * Jx)
-        by = _psum(-err * Jy)
+            cost, h00, h01, h11, bx, by = patch_sum(torch.stack([err * err, Jx * Jx, Jx * Jy, Jy * Jy, -err * Jx,
+                                                             -err * Jy]))
         det = h00 * h11 - h01 * h01
         inv_det = torch.where(det.abs() > 1e-12, 1.0 / torch.where(det != 0, det, 1.0), 0.0)
         upd = torch.stack([(h11 * bx - h01 * by) * inv_det, (h00 * by - h01 * bx) * inv_det], dim=-1)
@@ -148,10 +140,10 @@ def klt_level(
 def zncc_gate(core: torch.Tensor, img: torch.Tensor, kp: torch.Tensor, min_zncc: float) -> torch.Tensor:
     """ZNCC of template cores (N, P, P) against the patches at kp in img > min_zncc."""
     cur = interp.sample_patches(img, kp, core.shape[-1])
-    c0 = core - core.mean(dim=(1, 2), keepdim=True)
-    c1 = cur - cur.mean(dim=(1, 2), keepdim=True)
-    num = _psum(c0 * c1)
-    den = torch.sqrt(_psum(c0 * c0) * _psum(c1 * c1) + 1e-6)
+    c0 = core - patch_mean(core)[:, None, None]
+    c1 = cur - patch_mean(cur)[:, None, None]
+    num, q0, q1 = patch_sum(torch.stack([c0 * c1, c0 * c0, c1 * c1]))
+    den = torch.sqrt(q0 * q1 + 1e-6)
     return num / den > min_zncc
 
 

@@ -17,6 +17,7 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 
 from legoslam_tpu_torch.ops import interp, prefix
+from legoslam_tpu_torch.ops.rounding import div_const, patch_mean, patch_sum
 
 
 class ScanlineConfig(NamedTuple):
@@ -28,10 +29,10 @@ class ScanlineConfig(NamedTuple):
 
 def _zncc(pl: torch.Tensor, pr: torch.Tensor) -> torch.Tensor:
     """Zero-mean normalized cross-correlation over the last two axes."""
-    pl0 = pl - pl.mean(dim=(-2, -1), keepdim=True)
-    pr0 = pr - pr.mean(dim=(-2, -1), keepdim=True)
-    num = torch.sum(pl0 * pr0, dim=(-2, -1))
-    den = torch.sqrt(torch.sum(pl0 * pl0, dim=(-2, -1)) * torch.sum(pr0 * pr0, dim=(-2, -1)) + 1e-6)
+    pl0 = pl - patch_mean(pl)[..., None, None]
+    pr0 = pr - patch_mean(pr)[..., None, None]
+    num, ql, qr = patch_sum(torch.stack([pl0 * pr0, pl0 * pl0, pr0 * pr0]))
+    den = torch.sqrt(ql * qr + 1e-6)
     return num / den
 
 
@@ -63,8 +64,8 @@ def match(
     x0 = -(d_hi + half + 1)
     strip = interp.sample_grid(img_r, kp[:, 1] - (P - 1) / 2.0, kp[:, 0] + float(x0), P, S)
 
-    pl0 = patch_l - patch_l.mean(dim=(1, 2), keepdim=True)
-    norm_l = torch.sqrt(torch.sum(pl0 * pl0, dim=(1, 2)))
+    pl0 = patch_l - patch_mean(patch_l)[..., None, None]
+    norm_l = torch.sqrt(patch_sum(pl0 * pl0))
     cross = 0
     for k in range(P):
         cross = cross + torch.sum(pl0[:, :, k : k + 1] * strip[:, :, 1 + k : 1 + k + D], dim=1)
@@ -73,7 +74,7 @@ def match(
     cumq = torch.cat([zero, prefix.cumsum((strip * strip).sum(dim=1), dim=1)], dim=1)
     win_sum = cum[:, 1 + P : 1 + P + D] - cum[:, 1 : 1 + D]
     win_sq = cumq[:, 1 + P : 1 + P + D] - cumq[:, 1 : 1 + D]
-    var_r = torch.clamp(win_sq - win_sum * win_sum / (P * P), min=0.0)
+    var_r = torch.clamp(win_sq - div_const(win_sum * win_sum, P * P), min=0.0)
     den = norm_l[:, None] * torch.sqrt(var_r) + 1e-6
     cost = 1.0 - cross / den                                # (N, D)
 
@@ -114,9 +115,7 @@ def match(
         win = halo[:, :, 1:-1]
         gx = 0.5 * (halo[:, :, 2:] - halo[:, :, :-2])
         err = patch_l - win
-        c = torch.sum(err * err, dim=(1, 2))
-        h = torch.sum(gx * gx, dim=(1, 2))
-        b = torch.sum(err * gx, dim=(1, 2))
+        c, h, b = patch_sum(torch.stack([err * err, gx * gx, err * gx]))
         upd = torch.where(h > 1e-9, b / torch.where(h > 0, h, 1.0), 0.0)
         apply = active & ~(last_cost < c) & torch.isfinite(upd)
         u = torch.where(apply, u + upd, u)

@@ -36,8 +36,10 @@ from legoslam_tpu_torch.solver import robust, schur  # noqa: E402
 from legoslam_tpu_torch.utils.config import Config  # noqa: E402
 
 
-def index_add_build_blocks(graph, poses, points, kernel, delta, with_chi=False, order=None):
-    """The assembly as it was: the same per-edge blocks, summed by `index_add_`."""
+def index_add_build_blocks(graph, poses, points, kernel, delta, with_chi=False, order=None, assembly_precision="f32"):
+    """The assembly as it was: the same per-edge blocks (the cross terms
+    rounded to bfloat16 where `assembly_precision` says so, as
+    `schur.build_blocks` does), summed by `index_add_`."""
     K, L = poses.shape[0], points.shape[0]
     r, J = schur._edge_core(graph, poses, schur._finite(points), jacobians=True)
     vm = schur.edge_mask(graph)
@@ -59,7 +61,10 @@ def index_add_build_blocks(graph, poses, points, kernel, delta, with_chi=False, 
     dt, dev = r.dtype, r.device
     Hpp = torch.zeros((K, 6, 6), dtype=dt, device=dev).index_add_(0, e_pose, H_e[:, :6, :6])
     Hll = torch.zeros((L, 3, 3), dtype=dt, device=dev).index_add_(0, e_point, H_e[:, 6:, 6:])
-    Hpl = torch.zeros((K * L, 6, 3), dtype=dt, device=dev).index_add_(0, e_pose * L + e_point, H_e[:, :6, 6:])
+    cross = H_e[:, :6, 6:]
+    if assembly_precision == "bf16":
+        cross = cross.to(torch.bfloat16).to(dt)
+    Hpl = torch.zeros((K * L, 6, 3), dtype=dt, device=dev).index_add_(0, e_pose * L + e_point, cross)
     bp = torch.zeros((K, 6), dtype=dt, device=dev).index_add_(0, e_pose, b_e[:, :6])
     bl = torch.zeros((L, 3), dtype=dt, device=dev).index_add_(0, e_point, b_e[:, 6:])
     blocks = schur.BABlocks(Hpp=Hpp, Hll=Hll, Hpl=Hpl.view(K, L, 6, 3), bp=bp, bl=bl)

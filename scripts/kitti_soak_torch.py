@@ -1,7 +1,8 @@
 """The JAX package's 1,000-frame KITTI-format soak (tests/test_kitti_soak.py)
 through the port's command line, on one GPU.
 
-    python3 scripts/kitti_soak_torch.py [--frames 1000] [--workers 8] [--cache DIR] [--device cpu]
+    python3 scripts/kitti_soak_torch.py [--frames 1000] [--course s_curve|level] [--workers 8] [--cache DIR]
+                                        [--device cpu]
                                         [--app jax [--xla-isa AVX2]] [--save-trajectory OUT]
                                         [--against TRAJ ...] [--config_file YAML] [--set KEY=VALUE ...]
 
@@ -31,10 +32,19 @@ on the same frames, the largest distance between the two runs' camera positions
 per 50 frames, the first frame at which it passes 0.05, 0.1 and 0.2 m, and
 the largest distance between their frame-to-frame motions.
 
-The S-curve leaves the 12 m half-width corridor at frame 460 (x = 12.02 m,
-26.4 m at most), and the JAX package's run, like the port's, loses track
-at frame 461; so the drift is also printed over the frames before the
-camera leaves the corridor.
+`--course` picks the camera's path through the same world
+(`chip_smoke.soak_trajectory`).  "s_curve" (the default) is the JAX soak's:
+its heading swings between 0 and +0.18 rad, so it leaves the 12 m
+half-width corridor at frame 460 (x = 12.02 m, 26.4 m at most), and the
+JAX package's run, like the port's, loses track at frame 461; so the drift
+is also printed over the frames before the camera leaves the corridor.
+"level" turns by 0.0018 cos(2 pi k / 320) a frame where the S-curve turns
+by 0.0018 sin(2 pi k / 320): the same speed, world, occluders and noise,
+with a heading of +-0.092 rad about the corridor's axis, so the camera
+stays within 3.02 m of it for all 1,000 frames; but it drives through
+occluder 3 at frame 61 and occluder 2 at frame 264, where the tracked set
+collapses (ROADMAP C14).  Before it runs anything the script prints the
+course's largest |x| and its clearance from each occluder it reaches.
 """
 
 from __future__ import annotations
@@ -64,6 +74,7 @@ DRIFT_BAR = 2.0  # m per 100 m, tests/test_kitti_soak.py:147
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=chip_smoke.SOAK_FRAMES)
+    ap.add_argument("--course", choices=chip_smoke.SOAK_COURSES, default="s_curve")
     ap.add_argument("--workers", type=int, default=max(1, min(8, os.cpu_count() or 1)))
     ap.add_argument("--cache", default=os.path.join(tempfile.gettempdir(), "legoslam_torch_soak_v1"))
     ap.add_argument("--device", default="cuda", help="the port's --device")
@@ -78,14 +89,19 @@ def main() -> int:
     ap.add_argument("--load-trajectory", default=None, metavar="TRAJ",
                     help="evaluate a run saved with --save-trajectory instead of running a command")
     args = ap.parse_args()
+    pos = chip_smoke.soak_trajectory(course=args.course)[: args.frames, :3, 3]
+    x = np.abs(pos[:, 0])
+    print(f"soak: course {args.course}, {args.frames} frames, largest |x| {x.max():.4f} m at frame {int(np.argmax(x))} "
+          f"(corridor half width {chip_smoke.SOAK_HALF_WIDTH} m); {occluder_clearance(pos)}", flush=True)
     if args.load_trajectory:
         est = np.loadtxt(args.load_trajectory).reshape(-1, 3, 4)
         return evaluate(args, est, None, f"the run saved in {args.load_trajectory}")
-    root = os.path.join(args.cache, f"{args.frames}", "07")
+    # the S-curve keeps the cache layout it had before the courses
+    root = os.path.join(args.cache, *(() if args.course == "s_curve" else (args.course,)), f"{args.frames}", "07")
     t0 = time.perf_counter()
     if not os.path.exists(os.path.join(root, "COMPLETE")):
         with ProcessPoolExecutor(args.workers, mp_context=multiprocessing.get_context("spawn")) as pool:
-            chip_smoke.start_soak_sequence(pool, args.workers, root, args.frames)()
+            chip_smoke.start_soak_sequence(pool, args.workers, root, args.frames, args.course)()
         with open(os.path.join(root, "COMPLETE"), "w") as f:
             f.write("ok\n")
         print(f"soak: wrote {args.frames} frames to {root} in {time.perf_counter() - t0:.1f} s "
@@ -138,6 +154,23 @@ def main() -> int:
     return evaluate(args, est, run_s, f"{args.app} on {where}")
 
 
+def occluder_clearance(pos) -> str:
+    """Where the camera path (T_wc positions) crosses each occluder's plane,
+    its distance from the occluder's rectangle (negative: through it)."""
+    out = []
+    for i, (xc, yc, zc, w, h, _, _) in enumerate(chip_smoke.soak_world(1).occluders):
+        k = int(np.argmin(np.abs(pos[:, 2] - zc)))
+        if abs(pos[k, 2] - zc) <= 0.3:  # the path reaches the plane (0.3 m per frame)
+            gap = max(abs(pos[k, 0] - xc) - w / 2, abs(pos[k, 1] - yc) - h / 2)
+            out.append((gap, k, i))
+    if not out:
+        return "no occluder on the path"
+    through = [f"occluder {i} at frame {k}" for gap, k, i in sorted(out) if gap < 0]
+    gap, k, i = min(out)
+    return (f"closest occluder {i}: {gap:.2f} m at frame {k}"
+            + (f"; the camera passes through {', '.join(through)}" if through else ""))
+
+
 def evaluate(args, est, run_s, what) -> int:
     """Print the run's distance from the `--against` runs and its errors
     against the ground truth; 0 where it has every frame and drifts under
@@ -156,7 +189,7 @@ def evaluate(args, est, run_s, what) -> int:
               f"{[round(float(gap[i:i + 50].max()), 4) for i in range(0, len(gap), 50)]}; first frame past "
               f"0.05 / 0.1 / 0.2 m: {firsts[0.05]} / {firsts[0.1]} / {firsts[0.2]}; frame-to-frame motion apart by "
               f"{float(step_gap.max()):.4f} m at most (frame {int(np.argmax(step_gap))})", flush=True)
-    gt = chip_smoke.soak_trajectory()[: args.frames]
+    gt = chip_smoke.soak_trajectory(course=args.course)[: args.frames]
     pos, gt_pos = est[:, :, 3], gt[:, :3, 3]
     path = float(np.linalg.norm(np.diff(gt_pos, axis=0), axis=1).sum())
     final = float(np.linalg.norm(pos[-1] - gt_pos[-1]))
@@ -173,7 +206,7 @@ def evaluate(args, est, run_s, what) -> int:
     print(f"soak: {len(est)} frames{took}, path {path:.1f} m, "
           f"ATE {ate:.4f} m (unaligned, as the JAX soak; {ate_aligned:.6f} m rigidly aligned, as chip_smoke.py's "
           f"step 10), final error {final:.4f} m, drift {drift:.4f} m per "
-          f"100 m (bar {DRIFT_BAR}); {what}"
+          f"100 m (bar {DRIFT_BAR}); course {args.course}; {what}"
           f"{f', --xla_cpu_max_isa={args.xla_isa}' if args.xla_isa else ''}"
           f"{f', --config_file {args.config_file}' if args.config_file else ''}"
           f"{f', --set {' '.join(args.set)}' if args.set else ''}", flush=True)

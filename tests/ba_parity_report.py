@@ -2,7 +2,9 @@
 
     JAX_PLATFORMS=cpu python -m tests.ba_parity_report [--bench-world | --only-bench-world | --loop-records FILE
                                                         | --isa-spread | --kitti-window SEQ FRAME [--save OUT]
-                                                        | --kitti-handover SEQ START END]
+                                                        | --kitti-handover SEQ START END
+                                                        | --kitti-stages SEQ START END [--save OUT] [--handover FILE]
+                                                          [--card FILE] [--fixture-frame H]]
 
 Not a test (pytest does not collect it); it runs what the parity tests
 check and prints the values beside their bars:
@@ -47,7 +49,23 @@ check and prints the values beside their bars:
    map: tests/data/kitti_soak_window_f25.npz was made so);
 7. with --kitti-handover SEQ START END: the reference's carry after START
    frames of that sequence, stepped by the port through frame END; window
-   BA's chi on each keyframe frame beside the reference's own run's.
+   BA's chi on each keyframe frame beside the reference's own run's;
+8. with --kitti-stages SEQ START END: for each h in START..END the
+   reference's carry after h frames (its run under XLA's own instruction
+   set), and frame h stepped from it stage by stage (tests/kitti_stages.py:
+   pyramids, prior, tracking, pose, keyframe decision, and on a keyframe
+   eviction, GFTT, anchors, stereo, triangulation, the BA problem and
+   `ba_step`, each stage fed the unset setting's inputs), then one and five
+   whole frames, by the reference under each of the three settings (each in
+   a process of its own, which loads the carries and loops over h) and by
+   the port on the CPU; with --card FILE also the port on a card (what
+   `python tests/kitti_stages.py HANDOVER FILE` wrote there from the file
+   --handover keeps).  Prints, for each (h, quantity), the settings' spread,
+   the port's gap to each setting and its bar (twice the spread, or the
+   unit test's bar where the settings agree exactly), then the first (h,
+   quantity) at which the port passes its bar.  --save OUT writes the
+   fixture of tests/test_torch_kitti_stages.py at --fixture-frame (default:
+   that first frame, else 25).
 """
 
 from __future__ import annotations
@@ -71,7 +89,8 @@ from legoslam_tpu_torch.utils import evaluation
 from legoslam_tpu_torch.utils.config import Config
 from tests import test_torch_backend as tb
 from tests import test_torch_vo as tv
-from tests.torch_parity import compact_window, flat, step_gap, to_numpy, tree_to_numpy, window_gap
+from tests import kitti_stages as ks
+from tests.torch_parity import compact_window, step_gap, to_numpy, tree_to_numpy, window_gap
 
 
 def corridor() -> None:
@@ -274,7 +293,7 @@ def kitti_window(seq: str, frame: int, out: str = None) -> None:
     with open(os.path.join(seq, "calib.txt")) as f:
         P = [np.asarray([float(v) for v in line.split()[1:]]).reshape(3, 4) for line in f if line[:2] in ("P0", "P1")]
     if out:
-        np.savez_compressed(out, P0=P[0], P1=P[1], frame=frame, **flat(cut, "wmap/"))
+        np.savez_compressed(out, P0=P[0], P1=P[1], frame=frame, **ks.flat(cut, "wmap/"))
         print(f"kitti window: wrote {out} ({os.path.getsize(out)} bytes)")
     for name, d in (("the run's map", full), ("cut to its window", cut)):
         for precision in ("bf16", "f32"):
@@ -286,6 +305,15 @@ def kitti_window(seq: str, frame: int, out: str = None) -> None:
 
 
 ISAS = ("", "AVX2", "SSE4_2")  # "": XLA's own choice for the host
+ISA_NAMES = tuple(isa or "unset" for isa in ISAS)
+
+
+def _run_isa(isa, *args) -> None:
+    """This module with `args` in a process of its own, under XLA's CPU
+    instruction set `isa` ("" leaves it unset)."""
+    flags = os.environ.get("XLA_FLAGS", "") + (f" --xla_cpu_max_isa={isa}" if isa else "")
+    subprocess.run([sys.executable, "-m", "tests.ba_parity_report", *args], check=True,
+                   env={**os.environ, "XLA_FLAGS": flags.strip(), "JAX_PLATFORMS": "cpu"})
 
 
 def _hook_closers():
@@ -448,25 +476,19 @@ def _table(title, pairs, versus) -> None:
 
 
 def isa_spread() -> None:
-    names = [isa or "unset" for isa in ISAS]
-
-    def run(isa, *args):
-        flags = os.environ.get("XLA_FLAGS", "") + (f" --xla_cpu_max_isa={isa}" if isa else "")
-        subprocess.run([sys.executable, "-m", "tests.ba_parity_report", *args], check=True,
-                       env={**os.environ, "XLA_FLAGS": flags.strip(), "JAX_PLATFORMS": "cpu"})
-
+    names = list(ISA_NAMES)
     with tempfile.TemporaryDirectory() as tmp:
         def load(path):
             with open(os.path.join(tmp, path), "rb") as f:
                 return pickle.load(f)
 
         for isa, name in zip(ISAS, names):
-            run(isa, "--isa-runs", os.path.join(tmp, f"runs-{name}.pkl"))
+            _run_isa(isa, "--isa-runs", os.path.join(tmp, f"runs-{name}.pkl"))
         runs = {name: load(f"runs-{name}.pkl") for name in names}
         with open(os.path.join(tmp, "maps.pkl"), "wb") as f:
             pickle.dump({name: r["maps"] for name, r in runs.items()}, f)
         for isa, name in zip(ISAS, names):
-            run(isa, "--isa-map-solves", os.path.join(tmp, f"solves-{name}.pkl"), os.path.join(tmp, "maps.pkl"))
+            _run_isa(isa, "--isa-map-solves", os.path.join(tmp, f"solves-{name}.pkl"), os.path.join(tmp, "maps.pkl"))
         solves = {name: load(f"solves-{name}.pkl") for name in names}  # [setting][map's setting]
 
     T = [r["corridor"]["T_wc"] for r in runs.values()]
@@ -501,6 +523,172 @@ def isa_spread() -> None:
                {f"port/{a}": _solve_gaps(port_m, solves[a][m]) for a in names})
 
 
+def _kitti_stages_ref(seq: str, start: int, end: int, steps: int, out: str, feed: str = None) -> None:
+    """The reference's side of --kitti-stages under this process's XLA_FLAGS.
+    Without `feed`: its run of the sequence, the carries after START..END
+    frames, the frames they step, and each carry's stage chain and whole
+    steps, written to `out` (the handover file).  With `feed` (a handover
+    file): each carry's stages fed by that file's chains, and whole steps."""
+    if feed is not None:
+        d = dict(np.load(feed))
+        ops = ks.RefOps({}, d["P0"], d["P1"])
+        res = {}
+        for h in d["handovers"].tolist():
+            carry = ks.unflat(d, f"carry{h}/")
+            frames = [(d[f"frame{k}/left"], d[f"frame{k}/right"]) for k in range(h, h + steps)]
+            res.update(ks.flat(ks.stage_outputs(ops, carry, *frames[0], h, feed=ks.sub(d, f"ref{h}/")), f"stages{h}/"))
+            res.update(ks.flat(ks.step_outputs(ops, carry, frames, h, steps), f"steps{h}/"))
+        np.savez(out, **res)
+        return
+    from legoslam_tpu.pipeline.dataset import KittiDataset as JKitti
+
+    with open(os.path.join(seq, "calib.txt")) as f:
+        P = [np.asarray([float(v) for v in line.split()[1:]]).reshape(3, 4) for line in f if line[:2] in ("P0", "P1")]
+    ops = ks.RefOps({}, *P)
+    ds = JKitti(seq, use_native=False)
+    assert ds.init()
+    frames = []
+    for _ in range(end + steps):
+        fr = ds.next_frame()
+        frames.append(tuple(np.asarray(x) for x in (fr.left, fr.right)))
+    assert all(np.array_equal(x, np.round(x)) and 0 <= x.min() and x.max() <= 255 for f in frames for x in f)
+    frames = [tuple(x.astype(np.uint8) for x in f) for f in frames]
+    # the reference's run, as its VisualOdometry steps it (the same jitted step)
+    carry = ops.j_vo.initial_carry(ops.cfg, frames[0][0].shape)
+    carries = {0: tree_to_numpy(carry)}
+    for k in range(end):
+        carry, _ = ops.step(carry, ops.dev(frames[k][0]), ops.dev(frames[k][1]), k)
+        carries[k + 1] = tree_to_numpy(carry)
+    res = {"P0": P[0], "P1": P[1], "handovers": np.arange(start, end + 1), "steps": np.asarray(steps)}
+    for k in range(start, end + steps):
+        res[f"frame{k}/left"], res[f"frame{k}/right"] = frames[k]
+    for h in range(start, end + 1):
+        res.update(ks.flat(carries[h], f"carry{h}/"))
+        chain = ks.stage_outputs(ops, carries[h], *frames[h], h)
+        res.update(ks.flat(chain, f"ref{h}/"))
+        res.update(ks.flat(chain, f"stages{h}/"))
+        res.update(ks.flat(ks.step_outputs(ops, carries[h], frames[h:h + steps], h, steps), f"steps{h}/"))
+    np.savez(out, **res)
+
+
+def _print_handover(h: int, settings: dict, port: dict, gaps_fn, first: dict) -> None:
+    """One handover's table of stages or steps (`gaps_fn`): per quantity the
+    settings' spread, the port's gap to each setting (and the card's, where
+    `port` has it) and the bar; records in `first[p]` the first frame at
+    which each quantity of port `p` passes its bar."""
+    spread = ks.spread(gaps_fn, settings)
+    cols = {(p, n): gaps_fn(port[p], settings[n]) for p in port for n in settings}
+    for q in ks.UNIT_BARS:
+        if q not in spread:
+            continue
+        bar = ks.bar(q, spread[q])
+        stage = q not in ks.FIVE_STEPS + ks.BA_SOLVE  # how a gap grows, and BA's own solve: not stages
+        past = {p for (p, _), c in cols.items() if c[q] > bar}
+        flag = ("  PARTS" if stage else "  (past twice the spread)") if past else ""
+        for p in past if stage else ():
+            first.setdefault(p, {}).setdefault(q, h)
+        print(f"  h={h:3d} {q:28s} spread {spread[q]:11.4g}  "
+              + "  ".join(f"{p}/{n} {c[q]:11.4g}" for (p, n), c in cols.items()) + f"  bar {bar:.4g}{flag}")
+
+
+def kitti_stages(seq: str, start: int, end: int, save: str = None, handover: str = None, card: str = None,
+                 fixture_frame: int = None, steps: int = 5) -> None:
+    with tempfile.TemporaryDirectory() as tmp:
+        hfile = handover or os.path.join(tmp, "handover.npz")
+        _run_isa("", "--kitti-stages-ref", seq, str(start), str(end), str(steps), hfile)
+        d = dict(np.load(hfile))
+        runs = {"unset": d}
+        for isa, name in zip(ISAS[1:], ISA_NAMES[1:]):
+            path = os.path.join(tmp, f"{name}.npz")
+            _run_isa(isa, "--kitti-stages-ref", seq, str(start), str(end), str(steps), path, "--feed", hfile)
+            runs[name] = dict(np.load(path))
+    ops = ks.port_ops({}, d["P0"], d["P1"], "cpu")
+    ports = {"port": ks.run_handover(d, ops, steps)}
+    if card:
+        ports["card"] = dict(np.load(card))
+    first = {}
+    for h in d["handovers"].tolist():
+        print(f"kitti stages: carry after {h} frames, frame {h} stage by stage (each stage fed the unset chain):")
+        _print_handover(h, {n: ks.sub(r, f"stages{h}/") for n, r in runs.items()},
+                        {p: ks.sub(r, f"stages{h}/") for p, r in ports.items()}, ks.stage_gaps, first)
+        _print_handover(h, {n: ks.sub(r, f"steps{h}/") for n, r in runs.items()},
+                        {p: ks.sub(r, f"steps{h}/") for p, r in ports.items()}, ks.step_gaps, first)
+        if f"ref{h}/pose/T" in d:
+            jit = np.abs(d[f"ref{h}/pose/T"] - d[f"steps{h}/T_cw"][0]).max()
+            print(f"  h={h:3d} the unset chain's pose against its whole step (functions jitted alone against the "
+                  f"fused step): {jit:.3g}")
+    order = list(ks.UNIT_BARS)
+    for p in ports:
+        if first.get(p):
+            h, q = min((h, order.index(q), q) for q, h in first[p].items())[::2]
+            print(f"kitti stages: the {p} first passes its bar at h={h}, {q}; first frame per quantity: {first[p]}")
+        else:
+            print(f"kitti stages: the {p} stays within its bars at every stage over frames {start}..{end}")
+    if save:
+        h = fixture_frame if fixture_frame is not None else min(first.get("port", {}).values(), default=25)
+        write_stage_fixture(save, d, runs, h)
+
+
+def write_stage_fixture(path: str, d: dict, runs: dict, h: int) -> None:
+    """tests/test_torch_kitti_stages.py's fixture: the unset setting's carry
+    after `h` frames and frame h (uint8), the inputs its stages are fed,
+    and each setting's stage outputs and one whole step.  Kept small: the
+    anchors and pyramids are not stored, since the port rebuilds them bit for
+    bit (checked here: the carry's anchors from the last keyframe's left
+    image, the frame's pyramids and anchors against the unset chain's);
+    `pyr_last` is zeroed (anchored tracking never reads it); an output that
+    every setting gives alike is stored once ("all/...")."""
+    import hashlib
+
+    from legoslam_tpu_torch.ops import klt, pyramid
+
+    carry = ks.unflat(d, f"carry{h}/")
+    wmap = carry["wmap"]
+    kf_frame = int(wmap["kf_frame_id"][wmap["kf_valid"]].max())
+    ops = ks.port_ops({}, d["P0"], d["P1"], "cpu")
+    kf_left = d[f"frame{kf_frame}/left"]
+    rebuilt = ops.np(klt.extract_anchors(tuple(pyramid.build_pyramid(ops.dev(kf_left), ks.LEVELS)),
+                                         ops.dev(carry["feats"]["anchor_uv"]), ops.cfg.klt))
+    assert np.array_equal(rebuilt, carry["feats"]["anchor"]), "the carry's anchors are not rebuilt bit for bit"
+    feed = ks.sub(d, f"ref{h}/")
+    left, right = d[f"frame{h}/left"], d[f"frame{h}/right"]
+    for name, img in (("pyr_l", left), ("pyr_r", right)):
+        for i, lvl in enumerate(pyramid.build_pyramid(ops.dev(img), ks.LEVELS)):
+            assert np.array_equal(ops.np(lvl), feed[f"{name}/{i}"]), f"{name} level {i} is not rebuilt bit for bit"
+    if "detect/uv" in feed:
+        pyr = tuple(ops.dev(feed[f"pyr_l/{i}"]) for i in range(ks.LEVELS))
+        anchors = ops.np(klt.extract_anchors(pyr, ops.dev(feed["detect/uv"]), ops.cfg.klt))
+        assert np.array_equal(anchors, feed["anchors/anchor"]), "the frame's anchors are not rebuilt bit for bit"
+
+    def rebuilt_key(k):
+        return k.startswith(("pyr_l/", "pyr_r/", "anchors/"))
+
+    def digest(a):
+        return hashlib.sha1(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    carry["feats"]["anchor"] = np.zeros_like(carry["feats"]["anchor"])
+    carry["pyr_last"] = [np.zeros_like(p) for p in carry["pyr_last"]]
+    out = {"P0": d["P0"], "P1": d["P1"], "h": np.asarray(h), "kf_frame": np.asarray(kf_frame), "kf_left": kf_left,
+           "left": left, "right": right, **ks.flat(carry, "carry/"),
+           **{f"feed/{k}": v for k, v in feed.items() if not rebuilt_key(k) and not k.startswith(("ba/", "insert/"))}}
+    outputs = {name: {**{f"stages/{k}": v for k, v in ks.sub(r, f"stages{h}/").items()
+                         if not rebuilt_key(k) and not k.startswith(("wmapk/", "ba/", "insert/"))},
+                      **{f"steps/{k}": v[:1] for k, v in ks.sub(r, f"steps{h}/").items()}}
+               for name, r in runs.items()}
+    for k in outputs["unset"]:
+        values = [outputs[name][k] for name in runs]
+        if all(np.array_equal(values[0], v) for v in values[1:]):
+            out[f"all/{k}"] = values[0]
+        else:
+            out.update({f"{name}/{k}": v for name, v in zip(runs, values)})
+    for name, r in runs.items():
+        for k in ("pyr_l", "pyr_r"):
+            out[f"digest/{name}/{k}"] = np.asarray(digest(np.concatenate([r[f"stages{h}/{k}/{i}"].ravel()
+                                                                           for i in range(ks.LEVELS)])))
+    np.savez_compressed(path, **out)
+    print(f"kitti stages: wrote the fixture at h={h} to {path} ({os.path.getsize(path)} bytes)")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bench-world", action="store_true")
@@ -511,12 +699,31 @@ def main() -> None:
     ap.add_argument("--isa-spread", action="store_true")
     ap.add_argument("--kitti-window", nargs=2, default=None, metavar=("SEQ", "FRAME"),
                     help="the reference's map before keyframe FRAME's BA on the KITTI sequence SEQ")
-    ap.add_argument("--save", default=None, metavar="OUT", help="with --kitti-window: write the cut map")
+    ap.add_argument("--save", default=None, metavar="OUT",
+                    help="with --kitti-window: write the cut map; with --kitti-stages: write the test's fixture")
     ap.add_argument("--kitti-handover", nargs=3, default=None, metavar=("SEQ", "START", "END"),
                     help="the reference's carry after START frames stepped by the port to frame END")
+    ap.add_argument("--kitti-stages", nargs=3, default=None, metavar=("SEQ", "START", "END"),
+                    help="the reference's carries after START..END frames stepped stage by stage")
+    ap.add_argument("--handover", default=None, metavar="FILE",
+                    help="with --kitti-stages: keep the reference's carries, frames and chains (the card's input)")
+    ap.add_argument("--card", default=None, metavar="FILE",
+                    help="with --kitti-stages: the port's outputs on a card (python tests/kitti_stages.py)")
+    ap.add_argument("--fixture-frame", type=int, default=None, metavar="H",
+                    help="with --kitti-stages --save: the handover the fixture holds")
+    ap.add_argument("--kitti-stages-ref", nargs=5, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--feed", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--isa-runs", default=None, metavar="OUT", help=argparse.SUPPRESS)
     ap.add_argument("--isa-map-solves", nargs=2, default=None, metavar=("OUT", "MAPS"), help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.kitti_stages_ref:
+        seq, start, end, steps, out = args.kitti_stages_ref
+        _kitti_stages_ref(seq, int(start), int(end), int(steps), out, args.feed)
+        return
+    if args.kitti_stages:
+        kitti_stages(args.kitti_stages[0], *map(int, args.kitti_stages[1:]), save=args.save, handover=args.handover,
+                     card=args.card, fixture_frame=args.fixture_frame)
+        return
     if args.isa_runs:
         _isa_runs(args.isa_runs)
         return

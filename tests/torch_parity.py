@@ -106,17 +106,6 @@ def window_gap(win_a, win_b) -> float:
     return float(np.abs(relative(win_a["kf_pose"]) - relative(win_b["kf_pose"])).max())
 
 
-def flat(d, prefix=""):
-    """A nested dict of arrays as one level, keys joined by "/" (for npz)."""
-    out = {}
-    for k, v in d.items():
-        if isinstance(v, dict):
-            out.update(flat(v, f"{prefix}{k}/"))
-        else:
-            out[f"{prefix}{k}"] = np.asarray(v)
-    return out
-
-
 def compact_window(d):
     """The world map `d` (NumPy, by field) cut to the landmarks its window's
     keyframes hold, renumbered in id order: the window and its landmarks,
