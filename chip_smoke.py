@@ -13,8 +13,9 @@
    kernel source in frame mode (consecutive frames, 512 lanes, 4 levels,
    forward then backward; and again at the loop closer's shapes, 256 lanes
    and 3 levels of 94x310 from quantized half-resolution images) and the
-   pose estimate (512 edges), with the agreement bars stated below, their
-   work counts (GN lane-iterations, LM attempts) against the plain
+   pose estimate (512 edges, held bit for bit: the same pose, inliers, n_in
+   and LM attempts in every round), with the agreement bars stated below,
+   their work counts (GN lane-iterations, LM attempts) against the plain
    versions', the roofline bound of that work on this card (the KLT bytes
    are those of the pixels the lanes' windows touch, not whole pyramids),
    and median times from CUDA events (`device_ms`: the kernel's device time
@@ -35,7 +36,9 @@
    and keyframe frames, and keyframe frames into BA and the rest.  Then the
    same slice again: the two trajectories must be bit-equal (window BA sums
    in an order fixed by the graph), without
-   torch.use_deterministic_algorithms.
+   torch.use_deterministic_algorithms; in that run each pose-kernel
+   launch's inputs are kept, and the plain version on them on the card
+   must give the kernel's bits (pose, inliers, n_in, LM attempts).
 6. Window BA at full width (K=16 window slots, L=2048 active landmarks,
    E=5120 edges, 512 feature lanes, 131,072 landmarks): the map of step 5
    just before its last keyframe's BA goes through `backend.ba_step` on the
@@ -66,7 +69,10 @@
    frame-mode launches, and the host reads per registered keyframe.  The
    pyramids, features and mask of the closed arm's first accepted candidate
    are kept, and after the run the frame-mode kernel is held against its
-   plain version on them, forward and backward, under the bars of step 3.
+   plain version on them, forward and backward, under the bars of step 3;
+   the inputs of the pose kernel's verification launches (warm-started
+   rounds, 256 edges) are kept too, and the plain version on the first
+   LOOP_POSE_HELD of them on the card must give the kernel's bits.
 
 10. KITTI through the command line, at full size: the first 150 frames of
    the JAX package's 1,000-frame soak (376x1240 PNGs written with zlib,
@@ -110,6 +116,13 @@
    step 6's f32 `lm.solve_ba` (the sharded solve assembles at f32 whatever
    the config says, as the reference's does) at tests/test_dist_ba.py's bars
    (chi 1e-3 relative, poses 1e-3, points 5e-3); prints ms and host reads.
+16. Frame 5 of the KITTI soak stage by stage from the JAX reference's carry
+   (tests/data/kitti_soak_stages_f5.npz through tests/kitti_stages.py, which
+   imports no JAX), on the card and on the CPU: every stage and one whole
+   step within tests/test_torch_kitti_stages.py's bars against each of XLA's
+   three CPU settings, and the constant-velocity prior, tracking (uv and
+   mask) and the pose (T, inliers, n_in) equal between card and CPU bit for
+   bit; a difference is printed with its quantity, shape and size.
 
 The kernel launch counts are set to 0 just before each slice and read just
 after it (step 10's subprocess is counted through step 11's run of the same
@@ -144,8 +157,10 @@ SEED = 0
 # Agreement bars, kernel vs plain version on identical inputs.
 KLT_MASK_AGREE = 0.99     # success masks
 KLT_POS_ATOL = 1e-2       # px, where both succeed
-POSE_T_ATOL = 1e-3        # pose entries
-POSE_INLIER_AGREE = 0.99
+# K2 computes its plain version's bits (csrc/pose.cu rounds as solver/lm.py
+# does): pose entries, inlier masks, n_in and each round's LM attempts equal.
+POSE_T_ATOL = 0.0         # pose entries
+POSE_INLIER_AGREE = 1.0
 ATE_MAX = 0.05            # m, the JAX reference gets 0.0047 m on these frames (BA off)
 # The JAX reference's BA-inline run of the same 40 frames as configured
 # (VisualOdometry, ba_mode inline, ba_assembly_precision bf16, the default of
@@ -165,12 +180,10 @@ BA_CHI_RTOL = 1e-3
 BA_POSE_ATOL = 1e-3
 BA_MASK_AGREE = 0.99
 # Work counts, kernel vs plain version.  A lane moved by one GN step moves
-# the KLT count by one: max(atol, rtol * plain).  Near convergence a pose
-# step's chi change is at the float rounding level, so one run may accept it
-# and stop where the other rejects it and runs a rejection chain of up to
-# false_cnt_threshold (10) attempts: per round, at most 10 + 3 apart.
+# the KLT count by one: max(atol, rtol * plain).  The pose's LM attempts per
+# round: equal.
 KLT_WORK_TOL = (8, 0.02)
-POSE_ROUND_TOL = 13
+POSE_ROUND_TOL = 0
 
 # The JAX reference's run of the same 40 frames with track_mode frame and
 # stereo_matcher klt (BA inline at bf16, the default, on the CPU; `python -m
@@ -226,7 +239,7 @@ LAP_SIDE, LAP_TURN, LAP_SPEED, LAP_LAPS, LAP_TAIL = 32, 24, 0.3, 2, 4
 # photometric noise 1.5; read at half resolution (188x620) by the port's CLI.
 SOAK_SHAPE, SOAK_FOCAL, SOAK_BASELINE, SOAK_FRAMES, SOAK_SPEED = (376, 1240), 720.0, 0.54, 1000, 0.3
 SOAK_HALF_WIDTH = 12.0
-SOAK_COURSES = ("s_curve", "level")  # soak_trajectory's courses; step 10 drives the first
+SOAK_COURSES = ("s_curve", "level", "clear")  # soak_trajectory's courses; step 10 drives the first
 KITTI_FRAMES = 150
 RESUME_FRAMES, RESUME_AT = 60, 30   # step 11: 60 frames, stopped and resumed after 30
 # The JAX reference's run of those 150 frames through its own command line
@@ -264,9 +277,16 @@ F32_FLOP_PER_S = 67e12    # float32 outside the tensor cores
 KLT_FLOP_PER_ITER = 81 * 12 + 49 * 17 + 20
 KLT_FLOP_ZNCC = 49 * 12 + 49 * 8
 KLT_FLOP_TEMPLATE = 81 * 12   # frame mode samples its 9x9 template per lane and level
-# FLOPs of one pose edge per LM pass: projection and Jacobian (~40), Huber
-# weights (~15), the 21 + 6 + 1 sums (~135).
-POSE_FLOP_PER_EDGE = 190
+# FLOPs of one pose edge per LM pass, as the function needs them:
+# projection and Jacobian (~40), Huber weights with W symmetric (~15), the
+# rows of J^T W (36) and the b terms (14), the sums of H's 21 upper entries
+# (84: two rows, a multiply and an add each), of b (12) and chi (1).  K2
+# sums all 36 entries of H and computes W10 apart from W01, to give the
+# reference's bits (its H is not symmetric bit for bit): 63 FLOPs more,
+# not counted.
+POSE_FLOP_PER_EDGE = 202
+# K2's verification launches of the loop course held against the plain version.
+LOOP_POSE_HELD = 12
 MAIN_KERNELS = ("klt_pyramid_anchored", "estimate_pose")  # launched on every tracking frame of the default path
 
 
@@ -403,12 +423,14 @@ def soak_trajectory(n=SOAK_FRAMES, speed=SOAK_SPEED, course="s_curve"):
     swings between 0 and +0.18 rad, so the camera leaves the 12 m corridor
     at frame 460); "level" turns by 0.0018 cos(2 pi k / 320), a heading of
     +-0.092 rad about the corridor's axis, and stays within 3.02 m of it
-    (but drives through two occluders, ROADMAP C14)."""
+    (but drives through two occluders, ROADMAP C14); "clear" turns by
+    0.0018 cos(2 pi k / 320 + 2.847), stays within 9.50 m of the axis and
+    passes every occluder at 1.51 m or more."""
     k = np.arange(n)
     if course not in SOAK_COURSES:
         raise ValueError(f"unknown soak course {course!r} ({' | '.join(SOAK_COURSES)})")
-    wave = np.sin if course == "s_curve" else np.cos
-    dyaw = 0.0018 * wave(2 * np.pi * k / 320.0)
+    arg = 2 * np.pi * k / 320.0
+    dyaw = 0.0018 * {"s_curve": np.sin(arg), "level": np.cos(arg), "clear": np.cos(arg + 2.847)}[course]
     poses, pos, yaw = [], np.zeros(3), 0.0
     for dy in dyaw:
         c, s = np.cos(yaw), np.sin(yaw)
@@ -773,7 +795,7 @@ def run_slices(dev, kind, smi, klt_k, pose_k, frames, lap_frames, kitti_root, sc
     print(f"K2 pose: LM attempts per round kernel {a_k} plain {a_e} (bar {POSE_ROUND_TOL} per round)", flush=True)
     check(terr <= POSE_T_ATOL, "K2 pose disagrees with the plain version")
     check(tru <= 5e-3, "K2 pose misses the true pose")
-    check(iagree >= POSE_INLIER_AGREE, "K2 inliers disagree with the plain version")
+    check(iagree >= POSE_INLIER_AGREE and int(n_k) == int(n_e), "K2 inliers disagree with the plain version")
     check(all(abs(x - y) <= POSE_ROUND_TOL for x, y in zip(a_k, a_e)),
           "K2 work count disagrees with the plain version")
     E = P.shape[0]
@@ -897,18 +919,46 @@ def run_slices(dev, kind, smi, klt_k, pose_k, frames, lap_frames, kitti_root, sc
 
     # The same slice again: the card must give the same bits, without
     # torch.use_deterministic_algorithms (BA sums in a fixed order).
+    # This run also keeps a copy of each K2 launch's inputs, outputs and LM
+    # attempts, and the plain version must give the same bits on them.
     check(not torch.are_deterministic_algorithms_enabled(), "deterministic algorithms are on")
     vo = VisualOdometry(config=config, dataset=FrameList(frames, ds.rig))
     check(vo.init(), "VisualOdometry.init failed (BA inline, second run)")
-    reset_counts()
-    while vo.step():
-        pass
-    launches_inline2 = read_counts()
+    pose_calls, dispatch = [], pose_k.estimate_pose
+
+    def capturing_pose(intr, T_init, p_world, uv, valid, **kw):
+        att = torch.zeros((kw.get("outer_iterations", 4),), dtype=torch.int32, device=T_init.device)
+        out = dispatch(intr, T_init, p_world, uv, valid, attempts=att, **kw)
+        pose_calls.append(((intr, T_init.clone(), p_world.clone(), uv.clone(), valid.clone()), kw,
+                           tuple(o.clone() for o in out), att))
+        return out
+
+    pose_k.estimate_pose = capturing_pose
+    try:
+        reset_counts()
+        while vo.step():
+            pass
+        launches_inline2 = read_counts()
+    finally:
+        pose_k.estimate_pose = dispatch
     digests = [hashlib.sha1(np.ascontiguousarray(T).tobytes()).hexdigest()[:12]
                for T in (T_wc, vo.trajectory_T_wc())]
     print(f"slice inline, run twice: trajectory sha1 {digests[0]} and {digests[1]}, bit-equal "
           f"{digests[0] == digests[1]}, launches {launches_inline2}", flush=True)
     check(digests[0] == digests[1], "two runs of the default path gave two trajectories")
+    differ = []
+    for i, (args, kw, (T_k, in_k, n_k), att_k) in enumerate(pose_calls):
+        att_e = torch.zeros_like(att_k)
+        T_e, in_e, n_e = pose_k.estimate_pose_eager(*args, attempts=att_e, **kw)
+        if not (torch.equal(T_k, T_e) and torch.equal(in_k, in_e) and torch.equal(n_k, n_e)
+                and torch.equal(att_k, att_e)):
+            differ.append((i, float((T_k - T_e).abs().max()), att_k.tolist(), att_e.tolist()))
+    print(f"slice inline: K2 against its plain version on each launch's own inputs: {len(pose_calls)} launches "
+          f"({int(pose_calls[0][0][4].numel())} edges, {sum(int(c[3].sum()) for c in pose_calls)} LM attempts in "
+          f"all), {len(differ)} differ {differ[:5]}", flush=True)
+    check(len(pose_calls) == launches_inline2["estimate_pose"] == N_FRAMES - 1,
+          f"{len(pose_calls)} K2 launches captured on {N_FRAMES - 1} tracking frames")
+    check(not differ, "K2 and its plain version differ on the default path's inputs")
     inline = {"digest": digests[0], "ate": ate_inline, "ms_per_frame": float(np.mean(frame_ms[WARMUP:])),
               "tracking_median": float(np.median(track)), "keyframes": n_kf}
 
@@ -1114,14 +1164,30 @@ def run_slices(dev, kind, smi, klt_k, pose_k, frames, lap_frames, kitti_root, sc
             pending.append((pyr_j, pyr_i, uv_j.contiguous(), valid.contiguous()))
             return verify_device(pyr_j, pyr_i, uv_j, valid, *rest)
 
+        verify_poses, dispatch = [], pose_k.estimate_pose
+
+        def capturing_pose(intr, T_init, p_world, uv, valid, verify_poses=verify_poses, **kw):
+            # the verification's K2 launches (the frontend's pass through)
+            if not kw.get("verification"):
+                return dispatch(intr, T_init, p_world, uv, valid, **kw)
+            att = torch.zeros((kw.get("outer_iterations", 4),), dtype=torch.int32, device=T_init.device)
+            out = dispatch(intr, T_init, p_world, uv, valid, attempts=att, **kw)
+            verify_poses.append(((intr, T_init.clone(), p_world.clone(), uv.clone(), valid.clone()), kw,
+                                 tuple(o.clone() for o in out), att))
+            return out
+
         lc._verify, lc._verify_device, vo._register_keyframe = timed_verify, capturing_verify_device, counted_register
-        reset_counts()
-        t0 = time.perf_counter()
-        while vo.step():
-            pass
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        counts = read_counts()
+        pose_k.estimate_pose = capturing_pose
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            while vo.step():
+                pass
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = read_counts()
+        finally:
+            pose_k.estimate_pose = dispatch
         est = vo.trajectory_T_wc()
         ids, kf_T_cw = vo.keyframe_trajectory()
         arms[zncc] = {
@@ -1130,7 +1196,7 @@ def run_slices(dev, kind, smi, klt_k, pose_k, frames, lap_frames, kitti_root, sc
             "stats": dict(lc.stats), "statuses": vo.statuses(), "launches": counts, "records": len(ids),
             "ms_per_frame": 1e3 * dt / len(est), "verify_ms": verify_ms, "verify_reads": verify_reads,
             "register_reads": register_reads, "finite": bool(np.isfinite(est).all()), "captured": captured,
-            "klt_cfg": lc.cfg.klt, "est": est,
+            "klt_cfg": lc.cfg.klt, "est": est, "verify_poses": verify_poses,
             "first_closure": lc.records[lc.loop_edges[0][0]].frame_id if lc.loop_edges else None,
         }
     for name, zncc in (("open", 1.1), ("closed", 0.5)):
@@ -1167,10 +1233,25 @@ def run_slices(dev, kind, smi, klt_k, pose_k, frames, lap_frames, kitti_root, sc
           f"the closer's verification shapes are {tuple(uv_j.shape)}, {len(pyr_j)} levels of {tuple(pyr_j[0].shape)}")
     err_loop = hold_klt_frame(klt_k, "K1 frame on the closed arm's first accepted candidate", pyr_j, pyr_i, uv_j,
                               valid_j, closed["klt_cfg"], min_tracked=loop_closure.LoopConfig().min_inliers)[0]
+    calls = closed["verify_poses"]
+    check(0 < len(closed["verify_ms"]) <= len(calls) <= 2 * len(closed["verify_ms"]),
+          f"{len(calls)} K2 verification launches for {len(closed['verify_ms'])} verified candidates")
+    differ = []
+    for i, (args, kw, (T_k, in_k, n_k), att_k) in enumerate(calls[:LOOP_POSE_HELD]):
+        att_e = torch.zeros_like(att_k)
+        T_e, in_e, n_e = pose_k.estimate_pose_eager(*args, attempts=att_e, **kw)
+        if not (torch.equal(T_k, T_e) and torch.equal(in_k, in_e) and torch.equal(n_k, n_e)
+                and torch.equal(att_k, att_e)):
+            differ.append((i, float((T_k - T_e).abs().max()), att_k.tolist(), att_e.tolist()))
+    print(f"loop closed: K2's verification rounds against its plain version on the card, on the first "
+          f"{min(len(calls), LOOP_POSE_HELD)} of {len(calls)} launches' own inputs ({int(calls[0][0][4].numel())} "
+          f"edges): {len(differ)} differ {differ[:5]}", flush=True)
+    check(not differ, "K2's verification rounds and their plain version differ")
 
     launches_kitti = run_kitti_steps(kind, smi, kitti_root, scratch, reset_counts, read_counts)
     launches_more = run_chunk_async_graph_dist(dev, kind, smi, frames, ds, config, inline, ba_calls[-1][1],
                                                ba_runs["f32"][:2], reset_counts, read_counts)
+    check_stage_fixture(kind, smi)
 
     # library_ms: no single PyTorch call computes any of the three functions.
     slices = (launches_off, launches_inline, launches_inline2, launches_modes, launches_marg, arms[1.1]["launches"],
@@ -1362,6 +1443,52 @@ def run_chunk_async_graph_dist(dev, kind, smi, frames, ds, config, inline, ba_ar
     check(dpose <= DIST_POSE_ATOL and dpts <= DIST_POINT_ATOL, "distributed BA disagrees with the single solve")
     check(map_d.lm_pos.is_cuda and st_d.chi.is_cuda, "distributed BA left the card")
     return [launches_chunk, *launches_async]
+
+
+# Step 16: the quantities the card must compute as the CPU does, bit for bit.
+STAGE_BIT_EQUAL = ("prior/T", "track/uv", "track/valid", "pose/T", "pose/lm", "pose/n_in")
+
+
+def check_stage_fixture(kind, smi) -> None:
+    """16. Frame 5 of the KITTI soak stage by stage from the reference's
+    carry (tests/data/kitti_soak_stages_f5.npz, through tests/kitti_stages.py,
+    which needs no JAX), on the card and on the CPU: every stage and one
+    whole step within tests/test_torch_kitti_stages.py's bars of every XLA
+    setting, and the prior, tracking and pose bit for bit the CPU's."""
+    import importlib.util
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location("kitti_stages", os.path.join(repo, "tests", "kitti_stages.py"))
+    ks = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ks)
+    path = os.path.join(repo, "tests", "data", "kitti_soak_stages_f5.npz")
+    t0 = time.perf_counter()
+    runs = {}
+    for device in ("cuda", "cpu"):
+        fx = ks.load_stage_fixture(path, device)
+        runs[device] = ks.run_stage_fixture(fx)
+    torch.cuda.synchronize()
+    settings = fx["settings"]
+    spread = ks.fixture_spread(settings)
+    quantities = [q for qs in ks.FIXTURE_STAGES.values() for q in qs] + list(ks.ONE_STEP)
+    past = []
+    for device, run in runs.items():
+        for name in ks.FIXTURE_SETTINGS:
+            gaps = ks.fixture_gaps(run, settings[name])
+            past += [(device, name, q, gaps[q], ks.bar(q, spread[q])) for q in quantities
+                     if gaps[q] > ks.bar(q, spread[q])]
+    card, cpu = runs["cuda"]["stages"], runs["cpu"]["stages"]
+    differ = [(k, tuple(np.shape(cpu[k])), float(np.abs(np.asarray(card[k], np.float64)
+                                                      - np.asarray(cpu[k], np.float64)).max()))
+              for k in STAGE_BIT_EQUAL if not np.array_equal(card[k], cpu[k])]
+    card_cpu = ks.fixture_gaps(runs["cuda"], runs["cpu"])
+    print(f"stages f5: frame {fx['h']} of the KITTI soak on the card and on the CPU, "
+          f"{time.perf_counter() - t0:.1f} s; card against CPU: "
+          + ", ".join(f"{q} {card_cpu[q]:.3g}" for q in quantities) + f"; on {kind} ({smi})", flush=True)
+    print(f"stages f5: past the bars of tests/test_torch_kitti_stages.py: {past}; card and CPU differ in "
+          f"{differ} of {list(STAGE_BIT_EQUAL)}", flush=True)
+    check(not past, "a stage of frame 5 is past its bar")
+    check(not differ, "the card's prior, tracking or pose differs from the CPU's")
 
 
 def kitti_errors(T_wc, gt):

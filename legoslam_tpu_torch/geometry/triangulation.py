@@ -15,6 +15,8 @@ import math
 
 import torch
 
+from legoslam_tpu_torch.ops import rounding
+
 
 def _sym_invariants(S: torch.Tensor):
     """(c1, c2, c3, c4, adjS) for det(xI - S) = x^4 - c1 x^3 + c2 x^2 - c3 x + c4."""
@@ -61,7 +63,7 @@ def _cubic_roots_desc(d1: torch.Tensor, d2: torch.Tensor, d3: torch.Tensor):
     q = (a * a - 3.0 * b) / 9.0
     r = (2.0 * a**3 - 9.0 * a * b + 27.0 * c) / 54.0
     q = torch.clamp(q, min=0.0)
-    sq = torch.sqrt(q)
+    sq = rounding.sqrt(q)
     denom = torch.where(q > 0, sq**3, 1.0)
     cosT = torch.clamp(r / denom, -1.0, 1.0)
     th = torch.arccos(cosT)
@@ -95,7 +97,7 @@ def _null_and_sigmas(A: torch.Tensor):
     e1, _, e3 = _cubic_roots_desc(d1, d2, torch.clamp(d3, min=0.0))
     e1 = torch.clamp(e1, min=0.0)
     e3 = torch.clamp(e3, min=0.0)
-    return v, torch.sqrt(e1), torch.sqrt(e3), torch.sqrt(e4)
+    return v, rounding.sqrt(e1), rounding.sqrt(e3), rounding.sqrt(e4)
 
 
 def triangulate(poses: torch.Tensor, pts_norm: torch.Tensor, sing_ratio_thr: float = 1e-3):

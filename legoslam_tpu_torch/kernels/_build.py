@@ -32,9 +32,9 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC",
 ]
 
-# K1 rounds as the reference's XLA code does, which contracts no
+# Each kernel rounds as its plain version does, which contracts no
 # multiply-add (csrc/klt_anchored.cu asks for its one fused multiply-add).
-SOURCE_FLAGS = {"klt_anchored": ["-fmad=false"]}
+SOURCE_FLAGS = {"klt_anchored": ["-fmad=false"], "pose": ["-fmad=false"]}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

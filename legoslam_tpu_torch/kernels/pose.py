@@ -21,7 +21,7 @@ from legoslam_tpu_torch.solver import lm, reprojection
 
 estimate_pose_eager = lm.estimate_pose
 # csrc/pose.cu keeps the launch's edges in shared memory: kMaxEdges.
-MAX_EDGES = 8192
+MAX_EDGES = 4096
 
 
 def _lib():
@@ -30,7 +30,7 @@ def _lib():
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, i, f, f, f, f, f, i, i, i, i, i, f, f, f, i, f, p, p, p, p, p]
+        fn.argtypes = [p, p, p, p, i, f, f, f, f, f, i, i, i, i, i, i, f, f, f, i, f, p, p, p, p, p]
     return lib
 
 
@@ -52,6 +52,7 @@ def estimate_pose_kernel(
     exclude_outliers: bool = True,
     cfg: lm.LMConfig = lm.LMConfig(),
     attempts: Optional[torch.Tensor] = None,
+    verification: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One launch of csrc/pose.cu; same contract as `estimate_pose_eager`,
     for at most MAX_EDGES edges."""
@@ -81,7 +82,7 @@ def estimate_pose_kernel(
     rc = lib.legoslam_estimate_pose(
         T_init.data_ptr(), p_world.data_ptr(), uv.data_ptr(), valid.data_ptr(), E,
         intr.fx, intr.fy, intr.cx, intr.cy, float(chi2_th), cfg.iterations, outer_iterations,
-        drop_kernel_after, int(bool(exclude_outliers)), int(cfg.strategy == "strategy1"),
+        drop_kernel_after, int(bool(exclude_outliers)), int(bool(verification)), int(cfg.strategy == "strategy1"),
         float(cfg.tau), float(cfg.max_diag_cap), float(cfg.diff_chi_threshold),
         cfg.false_cnt_threshold, float(cfg.init_lambda),
         T_out.data_ptr(), inlier.data_ptr(), n_in.data_ptr(),

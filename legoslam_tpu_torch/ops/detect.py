@@ -14,7 +14,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from legoslam_tpu_torch.ops import prefix
+from legoslam_tpu_torch.ops import prefix, rounding
 
 
 class GFTTConfig(NamedTuple):
@@ -59,7 +59,7 @@ def min_eig_response(img: torch.Tensor, block_size: int = 3) -> torch.Tensor:
     syy = _box_sum(iy * iy, block_size)
     sxy = _box_sum(ix * iy, block_size)
     tr = 0.5 * (sxx + syy)
-    det_part = torch.sqrt(torch.clamp(0.25 * (sxx - syy) ** 2 + sxy * sxy, min=0.0))
+    det_part = rounding.sqrt(torch.clamp(0.25 * (sxx - syy) ** 2 + sxy * sxy, min=0.0))
     return tr - det_part
 
 

@@ -26,6 +26,8 @@ from typing import Tuple
 
 import torch
 
+from legoslam_tpu_torch.ops import rounding
+
 # (H, W) of the images whose row pass the reference rounds as a fused
 # multiply-add (the module docstring); every other measured level
 # (188x620, 47x155, 23x77, 160x240, 20x30, 120x200, 60x100, 15x25,
@@ -40,12 +42,10 @@ def fused_rows(shape) -> bool:
 
 def _lerp(w0: torch.Tensor, a: torch.Tensor, w1: torch.Tensor, b: torch.Tensor, fused: bool) -> torch.Tensor:
     """w0*a + w1*b in float32: each product rounded, or (`fused`) rounded as
-    fma(w1, b, round(w0*a)); the float64 product of two float32 values is
-    exact, so the sum is rounded once but for a double rounding in float64,
-    which needs a tie at float32 precision (never seen on a pyramid)."""
+    fma(w1, b, round(w0*a)) (`rounding.fma`)."""
     if not fused:
         return w0 * a + w1 * b
-    return (w1.double() * b.double() + (w0 * a).double()).float()
+    return rounding.fma(w1, b, w0 * a)
 
 
 def axis_taps(start: torch.Tensor, size: int, count: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -21,7 +21,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from legoslam_tpu_torch.ops import interp, pyramid
+from legoslam_tpu_torch.ops import interp, pyramid, rounding
 from legoslam_tpu_torch.ops.rounding import patch_mean, patch_sum
 
 
@@ -143,7 +143,7 @@ def zncc_gate(core: torch.Tensor, img: torch.Tensor, kp: torch.Tensor, min_zncc:
     c0 = core - patch_mean(core)[:, None, None]
     c1 = cur - patch_mean(cur)[:, None, None]
     num, q0, q1 = patch_sum(torch.stack([c0 * c1, c0 * c0, c1 * c1]))
-    den = torch.sqrt(q0 * q1 + 1e-6)
+    den = rounding.sqrt(q0 * q1 + 1e-6)
     return num / den > min_zncc
 
 

@@ -16,7 +16,7 @@ from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
-from legoslam_tpu_torch.ops import interp, prefix
+from legoslam_tpu_torch.ops import interp, prefix, rounding
 from legoslam_tpu_torch.ops.rounding import div_const, patch_mean, patch_sum
 
 
@@ -32,7 +32,7 @@ def _zncc(pl: torch.Tensor, pr: torch.Tensor) -> torch.Tensor:
     pl0 = pl - patch_mean(pl)[..., None, None]
     pr0 = pr - patch_mean(pr)[..., None, None]
     num, ql, qr = patch_sum(torch.stack([pl0 * pr0, pl0 * pl0, pr0 * pr0]))
-    den = torch.sqrt(ql * qr + 1e-6)
+    den = rounding.sqrt(ql * qr + 1e-6)
     return num / den
 
 
@@ -65,7 +65,7 @@ def match(
     strip = interp.sample_grid(img_r, kp[:, 1] - (P - 1) / 2.0, kp[:, 0] + float(x0), P, S)
 
     pl0 = patch_l - patch_mean(patch_l)[..., None, None]
-    norm_l = torch.sqrt(patch_sum(pl0 * pl0))
+    norm_l = rounding.sqrt(patch_sum(pl0 * pl0))
     cross = 0
     for k in range(P):
         cross = cross + torch.sum(pl0[:, :, k : k + 1] * strip[:, :, 1 + k : 1 + k + D], dim=1)
@@ -75,7 +75,7 @@ def match(
     win_sum = cum[:, 1 + P : 1 + P + D] - cum[:, 1 : 1 + D]
     win_sq = cumq[:, 1 + P : 1 + P + D] - cumq[:, 1 : 1 + D]
     var_r = torch.clamp(win_sq - div_const(win_sum * win_sum, P * P), min=0.0)
-    den = norm_l[:, None] * torch.sqrt(var_r) + 1e-6
+    den = norm_l[:, None] * rounding.sqrt(var_r) + 1e-6
     cost = 1.0 - cross / den                                # (N, D)
 
     c_best, best_j = torch.min(cost, dim=1)

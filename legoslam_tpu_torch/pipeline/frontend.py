@@ -25,7 +25,7 @@ from legoslam_tpu_torch.kernels import pose as pose_kernels
 from legoslam_tpu_torch.ops import detect as detect_ops
 from legoslam_tpu_torch.ops import klt as klt_ops
 from legoslam_tpu_torch.ops import stereo as stereo_ops
-from legoslam_tpu_torch.ops.rounding import div_const
+from legoslam_tpu_torch.ops.rounding import div_const, small_matvec
 from legoslam_tpu_torch.pipeline.state import Capacities, Features, WorldMap
 from legoslam_tpu_torch.solver import lm as lm_ops
 from legoslam_tpu_torch.solver import marginalization, reprojection
@@ -164,7 +164,7 @@ def track_last_frame(
         dx = div_const(feats.uv[:, 0] - c.cx, c.fx)
         dy = div_const(feats.uv[:, 1] - c.cy, c.fy)
         ray = torch.stack([dx, dy, torch.ones_like(dx)], dim=-1)
-        d = (ray[:, None, :] * R[None, :, :]).sum(-1)  # ray @ R.T
+        d = small_matvec(R, ray)  # ray @ R.T
         z = torch.where(d[:, 2].abs() > 1e-6, d[:, 2], 1.0)
         rot_guess = torch.stack([c.fx * d[:, 0] / z + c.cx, c.fy * d[:, 1] / z + c.cy], dim=-1)
     else:

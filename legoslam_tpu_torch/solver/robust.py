@@ -9,6 +9,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from legoslam_tpu_torch.ops import rounding
+
 TRIVIAL = "trivial"
 HUBER = "huber"
 CAUCHY = "cauchy"
@@ -24,18 +26,20 @@ def rho(kind: str, e2: torch.Tensor, delta: float):
     if kind == TRIVIAL:
         return e2, torch.ones_like(e2), torch.zeros_like(e2)
     if kind == HUBER:
-        sqrte = torch.sqrt(torch.clamp(e2, min=1e-20))
+        sqrte = rounding.sqrt(torch.clamp(e2, min=1e-20))
         inlier = e2 <= d2
+        # a division, as the reference's (`delta / t` would multiply by t's reciprocal)
+        d_over = torch.full_like(sqrte, delta) / sqrte
         rho0 = torch.where(inlier, e2, 2.0 * sqrte * delta - d2)
-        rho1 = torch.where(inlier, torch.ones_like(e2), delta / sqrte)
-        rho2 = torch.where(inlier, torch.zeros_like(e2), -0.5 * (delta / sqrte) / torch.clamp(e2, min=1e-20))
+        rho1 = torch.where(inlier, torch.ones_like(e2), d_over)
+        rho2 = torch.where(inlier, torch.zeros_like(e2), -0.5 * d_over / torch.clamp(e2, min=1e-20))
         return rho0, rho1, rho2
     if kind == CAUCHY:
         aux = e2 / d2 + 1.0
         rho1 = 1.0 / aux
         return d2 * torch.log(aux), rho1, -(rho1 * rho1) / d2
     if kind == TUKEY:
-        e = torch.sqrt(torch.clamp(e2, min=0.0))
+        e = rounding.sqrt(torch.clamp(e2, min=0.0))
         aux = e2 / d2
         inlier = e <= delta
         rho0 = torch.where(inlier, d2 * (1.0 - (1.0 - aux) ** 3) / 3.0, torch.full_like(e2, d2 / 3.0))

@@ -1,7 +1,7 @@
 """The JAX package's 1,000-frame KITTI-format soak (tests/test_kitti_soak.py)
 through the port's command line, on one GPU.
 
-    python3 scripts/kitti_soak_torch.py [--frames 1000] [--course s_curve|level] [--workers 8] [--cache DIR]
+    python3 scripts/kitti_soak_torch.py [--frames 1000] [--course s_curve|level|clear] [--workers 8] [--cache DIR]
                                         [--device cpu]
                                         [--app jax [--xla-isa AVX2]] [--save-trajectory OUT]
                                         [--against TRAJ ...] [--config_file YAML] [--set KEY=VALUE ...]
@@ -43,8 +43,10 @@ by 0.0018 sin(2 pi k / 320): the same speed, world, occluders and noise,
 with a heading of +-0.092 rad about the corridor's axis, so the camera
 stays within 3.02 m of it for all 1,000 frames; but it drives through
 occluder 3 at frame 61 and occluder 2 at frame 264, where the tracked set
-collapses (ROADMAP C14).  Before it runs anything the script prints the
-course's largest |x| and its clearance from each occluder it reaches.
+collapses.  "clear" turns by 0.0018 cos(2 pi k / 320 + 2.847): the same
+family, within 9.50 m of the axis, every occluder passed at 1.51 m or more
+(ROADMAP C14).  Before it runs anything the script prints the course's
+largest |x| and its clearance from each occluder it reaches.
 """
 
 from __future__ import annotations

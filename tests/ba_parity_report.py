@@ -4,7 +4,8 @@
                                                         | --isa-spread | --kitti-window SEQ FRAME [--save OUT]
                                                         | --kitti-handover SEQ START END
                                                         | --kitti-stages SEQ START END [--save OUT] [--handover FILE]
-                                                          [--card FILE] [--fixture-frame H]]
+                                                          [--card FILE] [--fixture-frame H]
+                                                        | --probe-rounding [--save OUT]]
 
 Not a test (pytest does not collect it); it runs what the parity tests
 check and prints the values beside their bars:
@@ -65,7 +66,11 @@ check and prints the values beside their bars:
    unit test's bar where the settings agree exactly), then the first (h,
    quantity) at which the port passes its bar.  --save OUT writes the
    fixture of tests/test_torch_kitti_stages.py at --fixture-frame (default:
-   that first frame, else 25).
+   that first frame, else 25);
+9. with --probe-rounding: how the reference rounds the pose's small
+   products, constant divisions, square roots and 6x6 solve under the three
+   settings, against the port (tests/rounding_probe.py); --save OUT writes
+   tests/test_torch_rounding_frontend.py's fixture.
 """
 
 from __future__ import annotations
@@ -617,6 +622,8 @@ def kitti_stages(seq: str, start: int, end: int, save: str = None, handover: str
             jit = np.abs(d[f"ref{h}/pose/T"] - d[f"steps{h}/T_cw"][0]).max()
             print(f"  h={h:3d} the unset chain's pose against its whole step (functions jitted alone against the "
                   f"fused step): {jit:.3g}")
+    if card:
+        card_against_port(ports["port"], ports["card"], d["handovers"].tolist())
     order = list(ks.UNIT_BARS)
     for p in ports:
         if first.get(p):
@@ -627,6 +634,23 @@ def kitti_stages(seq: str, start: int, end: int, save: str = None, handover: str
     if save:
         h = fixture_frame if fixture_frame is not None else min(first.get("port", {}).values(), default=25)
         write_stage_fixture(save, d, runs, h)
+
+
+def card_against_port(cpu: dict, card: dict, handovers) -> None:
+    """Print the stage outputs in which the card's run of the handovers
+    differs from the port's on the CPU, bit for bit, with the handovers
+    where they do, and the whole steps' largest position gap per h."""
+    differ = {}
+    for k in cpu:
+        if k.startswith("stages") and k in card and not np.array_equal(cpu[k], card[k], equal_nan=True):
+            h, q = k[len("stages"):].split("/", 1)
+            differ.setdefault(q, []).append(int(h))
+    print(f"kitti stages: the card against the port on the CPU, stage outputs that differ bit for bit (at h): "
+          f"{differ if differ else 'none'}")
+    gaps = {h: np.abs(ks.centres(cpu[f"steps{h}/T_cw"]) - ks.centres(card[f"steps{h}/T_cw"])).max(axis=-1)
+            for h in handovers}
+    print("kitti stages: the card against the port on the CPU, largest position gap (m) per h after one whole "
+          "step / after all: " + ", ".join(f"{h}: {g[0]:.3g} / {g.max():.3g}" for h, g in gaps.items()))
 
 
 def write_stage_fixture(path: str, d: dict, runs: dict, h: int) -> None:
@@ -700,7 +724,8 @@ def main() -> None:
     ap.add_argument("--kitti-window", nargs=2, default=None, metavar=("SEQ", "FRAME"),
                     help="the reference's map before keyframe FRAME's BA on the KITTI sequence SEQ")
     ap.add_argument("--save", default=None, metavar="OUT",
-                    help="with --kitti-window: write the cut map; with --kitti-stages: write the test's fixture")
+                    help="with --kitti-window: write the cut map; with --kitti-stages or --probe-rounding: write "
+                         "the test's fixture")
     ap.add_argument("--kitti-handover", nargs=3, default=None, metavar=("SEQ", "START", "END"),
                     help="the reference's carry after START frames stepped by the port to frame END")
     ap.add_argument("--kitti-stages", nargs=3, default=None, metavar=("SEQ", "START", "END"),
@@ -711,11 +736,18 @@ def main() -> None:
                     help="with --kitti-stages: the port's outputs on a card (python tests/kitti_stages.py)")
     ap.add_argument("--fixture-frame", type=int, default=None, metavar="H",
                     help="with --kitti-stages --save: the handover the fixture holds")
+    ap.add_argument("--probe-rounding", action="store_true",
+                    help="how the reference rounds the pose's small products under XLA's CPU settings")
     ap.add_argument("--kitti-stages-ref", nargs=5, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--feed", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--isa-runs", default=None, metavar="OUT", help=argparse.SUPPRESS)
     ap.add_argument("--isa-map-solves", nargs=2, default=None, metavar=("OUT", "MAPS"), help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.probe_rounding:
+        from tests import rounding_probe
+
+        rounding_probe.probe_rounding(args.save)
+        return
     if args.kitti_stages_ref:
         seq, start, end, steps, out = args.kitti_stages_ref
         _kitti_stages_ref(seq, int(start), int(end), int(steps), out, args.feed)

@@ -322,7 +322,6 @@ class PortOps:
     def __init__(self, cfg, rig, ba_cfg, device="cpu"):
         import torch
 
-        from legoslam_tpu_torch.geometry import se3
         from legoslam_tpu_torch.ops import klt as klt_ops
         from legoslam_tpu_torch.ops import pyramid as pyr_ops
         from legoslam_tpu_torch.pipeline import backend, frontend, state
@@ -334,7 +333,7 @@ class PortOps:
         rig = rig.to(self.device)
         self.WMAP_FIELDS = [f for f in WorldMap.__dataclass_fields__]
         self.pyramid = lambda img: tuple(pyr_ops.build_pyramid(img, cfg.klt.levels))
-        self.prior = lambda rel, T: se3.se3_orthonormalize(rel @ T)
+        self.prior = vo.constant_velocity_prior
         self.track = lambda pl, p, f, lm_pos, T, rel: frontend.track_last_frame(cfg, rig, pl, p, f, lm_pos, T,
                                                                                  rel_motion=rel)
         self.pose = lambda f, lm_pos, T: frontend.estimate_current_pose(cfg, rig, f, lm_pos, T)
@@ -466,6 +465,82 @@ def port_ops(config: dict, P0, P1, device="cpu") -> PortOps:
         trace=bool(conf["ba_trace"]), assembly_precision=str(conf["ba_assembly_precision"]))
     rig = StereoRig.from_kitti_projections(P0, P1, scale=conf["image_scale"])
     return PortOps(frontend.FrontendConfig.from_config(conf), rig, ba_cfg, device)
+
+
+# tests/data/kitti_soak_stages_f5.npz's stages and what each compares
+# (tests/test_torch_kitti_stages.py and chip_smoke.py step 16).
+FIXTURE_SETTINGS = ("unset", "AVX2", "SSE4_2")
+FIXTURE_STAGES = {
+    "pyramid": ("pyramid (grey level)",),
+    "tracking": ("prior T (entry)", "tracking uv (px)", "tracking mask (lanes)"),
+    "pose": ("pose T (entry)", "pose inliers (lanes)", "pose n_in"),
+    "keyframe": ("keyframe decision", "evict (entries)"),
+    "detect": ("detect corners (lanes)", "detect uv (px)", "anchors (grey level)"),
+    "stereo": ("stereo uv_r (px)", "stereo matches (lanes)"),
+    "triangulate": ("triangulate born (lanes)", "triangulate points (m)"),
+    "ba problem": ("ba problem edges", "ba problem uv (px)", "ba problem slots"),
+}
+
+
+def _digest(pyr) -> str:
+    import hashlib
+
+    return hashlib.sha1(np.concatenate([np.ravel(p) for p in pyr]).tobytes()).hexdigest()
+
+
+def load_stage_fixture(path, device="cpu") -> dict:
+    """A fixture written by `write_stage_fixture`, with what it leaves out
+    rebuilt by the port on `device`: the carry's anchors (from the last
+    keyframe's left image), the frame's pyramids and anchors (bit for bit
+    the reference's, as `write_stage_fixture` checked; `pyr_digest` holds
+    the rebuilt pyramids' digests).  Returns the file (`d`), the port's
+    adaptor (`ops`), the carry, the stages' inputs (`feed`) and each
+    setting's stage and step outputs (`settings`)."""
+    from legoslam_tpu_torch.ops import klt, pyramid
+
+    d = dict(np.load(path))
+    ops = port_ops({}, d["P0"], d["P1"], device)
+    carry = unflat(d, "carry/")
+    kf_pyr = tuple(pyramid.build_pyramid(ops.dev(d["kf_left"]), LEVELS))
+    carry["feats"]["anchor"] = ops.np(klt.extract_anchors(kf_pyr, ops.dev(carry["feats"]["anchor_uv"]), ops.cfg.klt))
+    feed = sub(d, "feed/")
+    pyrs = {}
+    for name in ("pyr_l", "pyr_r"):
+        pyrs[name] = [ops.np(p) for p in pyramid.build_pyramid(ops.dev(d["left" if name == "pyr_l" else "right"]),
+                                                               LEVELS)]
+        feed.update({f"{name}/{i}": p for i, p in enumerate(pyrs[name])})
+    pyr_l = tuple(ops.dev(p) for p in pyrs["pyr_l"])
+    feed["anchors/anchor"] = ops.np(klt.extract_anchors(pyr_l, ops.dev(feed["detect/uv"]), ops.cfg.klt))
+    settings = {}
+    for name in FIXTURE_SETTINGS:
+        out = {**sub(d, "all/"), **sub(d, f"{name}/")}
+        # the rebuilt pyramids and anchors stand in for the stored ones
+        settings[name] = {"stages": {**sub(out, "stages/"), **{k: v for k, v in feed.items()
+                                                                if k.startswith(("pyr_", "anchors/"))}},
+                          "steps": sub(out, "steps/")}
+    return {"d": d, "ops": ops, "carry": carry, "feed": feed, "settings": settings, "h": int(d["h"]),
+            "pyr_digest": {name: _digest(p) for name, p in pyrs.items()}}
+
+
+def run_stage_fixture(fx: dict) -> dict:
+    """The port on a loaded fixture: the stages fed the reference's inputs
+    (no `insert_keyframe`, no `ba_step`), and one whole frame from the carry."""
+    ops, d = fx["ops"], fx["d"]
+    stages = stage_outputs(ops, fx["carry"], d["left"], d["right"], fx["h"], feed=fx["feed"], solve=False)
+    steps = step_outputs(ops, fx["carry"], [(d["left"], d["right"])], fx["h"], 1)
+    return {"stages": stages, "steps": steps}
+
+
+def fixture_gaps(a: dict, b: dict) -> Dict[str, float]:
+    """Stage and one-step gaps between two `run_stage_fixture` results (or
+    a setting's outputs)."""
+    return {**stage_gaps(a["stages"], b["stages"]), **step_gaps(a["steps"], b["steps"])}
+
+
+def fixture_spread(settings: dict) -> Dict[str, float]:
+    """The settings' spread of every quantity `fixture_gaps` compares."""
+    return {**spread(stage_gaps, {n: settings[n]["stages"] for n in FIXTURE_SETTINGS}),
+            **spread(step_gaps, {n: settings[n]["steps"] for n in FIXTURE_SETTINGS})}
 
 
 def run_handover(d: dict, ops, steps: int) -> dict:

@@ -1,0 +1,180 @@
+"""csrc/pose.cu's per-edge, solve and retraction arithmetic compiled for the
+host, so a CPU test can hold it against the plain version bit for bit.
+
+The kernel's device functions (a pass's three phases `chunk_terms`,
+`chunk_chain`, `combine_sums` and what they call, `damped_solve`,
+`retract`) are cut from the source as they stand and compiled with g++ at
+-O2 with -ffp-contract=off (the kernel's -fmad=false; `__fmaf_rn` is the
+C library's `fmaf`, which `host_fma` exposes), around a harness that runs one pass's phases for
+each of the 256 workers in turn, where the kernel puts its barriers.  `sinf` is the host's,
+not CUDA's, so the retraction is exact here only on the small-angle branch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import re
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import numpy as np
+
+SOURCE = Path(__file__).resolve().parent.parent / "legoslam_tpu_torch" / "csrc" / "pose.cu"
+FUNCTIONS = ("clamp_min", "clamp_max", "edge_terms", "huber", "edge_pass_terms", "chunk_terms", "chain",
+             "chunk_chain", "chain_slot", "combine_sums", "damped_solve", "retract")
+
+HARNESS = r"""
+extern "C" void host_pass(const float* T, const float* pw, const float* uv, const unsigned char* use, int E,
+                          float fx, float fy, float cx, float cy, int robust, float delta, float* out) {
+  const Intr k{fx, fy, cx, cy};
+  float Tr[12];
+  for (int q = 0; q < 12; ++q) Tr[q] = T[q];
+  static float px[kMaxEdges], py[kMaxEdges], pz[kMaxEdges], u[kMaxEdges], v[kMaxEdges];
+  static uint8_t flag[kMaxEdges];
+  for (int e = 0; e < E; ++e) {
+    px[e] = pw[3 * e], py[e] = pw[3 * e + 1], pz[e] = pw[3 * e + 2], u[e] = uv[2 * e], v[e] = uv[2 * e + 1];
+    flag[e] = use[e] ? kValid : 0;
+  }
+  const Edges ed{px, py, pz, u, v, flag};
+  static float cjw[12 * kChunk], cJ[12 * kChunk], cbt[12 * kChunk], cm[kChunk];
+  float acc[kWorkers];
+  for (int wt = 0; wt < kWorkers; ++wt) acc[wt] = 0.0f;
+  for (int c0 = 0; c0 < E; c0 += kChunk) {  // the workers' phases, split where the kernel's barriers are
+    const int n = E - c0 < kChunk ? E - c0 : kChunk;
+    for (int wt = 0; wt < kWorkers; ++wt)
+      chunk_terms(wt, c0, n, Tr, ed, kValid, k, robust != 0, delta, cjw, cJ, cbt, cm);
+    for (int wt = 0; wt < kWorkers; ++wt) acc[wt] = chunk_chain(wt, n, cjw, cJ, cbt, cm, acc[wt]);
+  }
+  float s_part[kChains], s_tot[44];
+  for (int wt = 0; wt < kWorkers; ++wt)
+    if (chain_slot(wt) >= 0) s_part[chain_slot(wt)] = acc[wt];
+  for (int wt = 0; wt < kWorkers; ++wt) combine_sums(wt, s_part, s_tot);
+  for (int q = 0; q < 43; ++q) out[q] = s_tot[q];
+}
+
+extern "C" void host_fma(const float* a, const float* b, const float* c, int n, float* out) {
+  for (int i = 0; i < n; ++i) out[i] = __fmaf_rn(a[i], b[i], c[i]);
+}
+
+extern "C" void host_solve(const float* H, const float* b, float lam, int strategy1, float* x) {
+  float Hr[36], br[6], xr[6];
+  for (int q = 0; q < 36; ++q) Hr[q] = H[q];
+  for (int q = 0; q < 6; ++q) br[q] = b[q];
+  damped_solve(Hr, br, lam, strategy1 != 0, xr);
+  for (int q = 0; q < 6; ++q) x[q] = xr[q];
+}
+
+extern "C" void host_retract(const float* T, const float* dx, float* out) {
+  float Tr[12], d[6], o[12];
+  for (int q = 0; q < 12; ++q) Tr[q] = T[q];
+  for (int q = 0; q < 6; ++q) d[q] = dx[q];
+  retract(Tr, d, o);
+  for (int q = 0; q < 12; ++q) out[q] = o[q];
+}
+"""
+
+PRELUDE = r"""
+#include <math.h>
+#include <stdint.h>
+#include <string.h>
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __fmaf_rn fmaf
+"""
+
+def _function(src: str, name: str) -> str:
+    """The source text of device function `name` (with a template line
+    before it, if any), braces balanced."""
+    m = re.search(r"(template <[^>]*>\n)?__(?:host__ __)?device__ [^\n]*?\b" + name + r"\(", src)
+    if m is None:
+        raise ValueError(f"{name} not found in {SOURCE.name}")
+    i = src.index("{", m.end())
+    depth = 0
+    for j in range(i, len(src)):
+        depth += {"{": 1, "}": -1}.get(src[j], 0)
+        if depth == 0:
+            return src[m.start():j + 1]
+    raise ValueError(f"unbalanced braces after {name}")
+
+
+def _constants(src: str) -> str:
+    """The source's constants and Intr, and its Edges struct."""
+    start = src.index("constexpr int kThreads")
+    edges = src.index("struct Edges {")
+    return src[start:src.index("struct LMParams")] + src[edges:src.index("};", edges) + 2] + "\n"
+
+
+def build(out_dir: str = None) -> ctypes.CDLL:
+    """Compile the harness around pose.cu's functions; None without g++."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        return None
+    src = SOURCE.read_text()
+    body = "\n\n".join(_function(src, n) for n in FUNCTIONS)
+    text = PRELUDE + _constants(src) + "\n" + body + "\n" + HARNESS
+    digest = hashlib.sha256(text.encode()).hexdigest()[:16]
+    out = Path(out_dir or tempfile.gettempdir()) / f"legoslam_pose_host-{digest}.so"
+    if not out.exists():
+        cpp = out.with_suffix(".cpp")
+        cpp.write_text(text)
+        cmd = [gxx, "-O2", "-ffp-contract=off", "-fno-fast-math", "-std=c++17", "-shared", "-fPIC",
+               "-o", str(out), str(cpp)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed on pose.cu's functions:\n{proc.stderr}")
+    lib = ctypes.CDLL(str(out))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.host_pass.argtypes = [p, p, p, p, i, f, f, f, f, i, f, p]
+    lib.host_fma.argtypes = [p, p, p, i, p]
+    lib.host_solve.argtypes = [p, p, f, i, p]
+    lib.host_retract.argtypes = [p, p, p]
+    return lib
+
+
+def _ptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def _t12(T) -> np.ndarray:
+    T = np.asarray(T, np.float32)
+    return np.ascontiguousarray(np.concatenate([T[:3, :3].ravel(), T[:3, 3]]), np.float32)
+
+
+def host_pass(lib, T, p_world, uv, use, intr, robust: bool, delta: float) -> np.ndarray:
+    """The kernel's 43 sums of one pass: H (36, row-major), b (6), chi before
+    the 0.5."""
+    out = np.zeros(44, np.float32)
+    pw = np.ascontiguousarray(p_world, np.float32)
+    uvc = np.ascontiguousarray(uv, np.float32)
+    use8 = np.ascontiguousarray(use, np.uint8)
+    lib.host_pass(_ptr(_t12(T)), _ptr(pw), _ptr(uvc), _ptr(use8), len(pw), intr.fx, intr.fy, intr.cx, intr.cy,
+                  int(robust), float(np.float32(delta)), _ptr(out))
+    return out[:43]
+
+
+def host_fma(lib, a, b, c) -> np.ndarray:
+    """The kernel's `__fmaf_rn` (the C library's `fmaf`) elementwise."""
+    a, b, c = (np.ascontiguousarray(x, np.float32) for x in (a, b, c))
+    out = np.zeros(a.shape, np.float32)
+    lib.host_fma(_ptr(a), _ptr(b), _ptr(c), a.size, _ptr(out))
+    return out
+
+
+def host_solve(lib, H, b, lam: float, strategy1: bool) -> np.ndarray:
+    x = np.zeros(6, np.float32)
+    lib.host_solve(_ptr(np.ascontiguousarray(H, np.float32).reshape(36)), _ptr(np.ascontiguousarray(b, np.float32)),
+                   float(np.float32(lam)), int(strategy1), _ptr(x))
+    return x
+
+
+def host_retract(lib, T, dx) -> np.ndarray:
+    out = np.zeros(12, np.float32)
+    lib.host_retract(_ptr(_t12(T)), _ptr(np.ascontiguousarray(dx, np.float32)), _ptr(out))
+    M = np.eye(4, dtype=np.float32)
+    M[:3, :3] = out[:9].reshape(3, 3)
+    M[:3, 3] = out[9:]
+    return M

@@ -26,7 +26,6 @@ from the fixture.
 
 from __future__ import annotations
 
-import hashlib
 from pathlib import Path
 
 import numpy as np
@@ -36,73 +35,22 @@ from tests import kitti_stages as ks
 from tests import torch_parity  # noqa: F401  (caps torch at 2 threads per xdist worker)
 
 FIXTURE = Path(__file__).parent / "data" / "kitti_soak_stages_f5.npz"
-SETTINGS = ("unset", "AVX2", "SSE4_2")
-STAGES = {
-    "pyramid": ("pyramid (grey level)",),
-    "tracking": ("prior T (entry)", "tracking uv (px)", "tracking mask (lanes)"),
-    "pose": ("pose T (entry)", "pose inliers (lanes)", "pose n_in"),
-    "keyframe": ("keyframe decision", "evict (entries)"),
-    "detect": ("detect corners (lanes)", "detect uv (px)", "anchors (grey level)"),
-    "stereo": ("stereo uv_r (px)", "stereo matches (lanes)"),
-    "triangulate": ("triangulate born (lanes)", "triangulate points (m)"),
-    "ba problem": ("ba problem edges", "ba problem uv (px)", "ba problem slots"),
-}
-
-
-def _digest(pyr) -> str:
-    return hashlib.sha1(np.concatenate([np.ravel(p) for p in pyr]).tobytes()).hexdigest()
+SETTINGS = ks.FIXTURE_SETTINGS
+STAGES = ks.FIXTURE_STAGES
 
 
 @pytest.fixture(scope="module")
 def fx():
-    """The fixture, with what it leaves out rebuilt by the port: the carry's
-    anchors (from the last keyframe's left image), the frame's pyramids and
-    anchors (bit for bit the reference's, as `write_stage_fixture` checked
-    and the pyramids' digests check here)."""
-    from legoslam_tpu_torch.ops import klt, pyramid
-
-    d = dict(np.load(FIXTURE))
-    ops = ks.port_ops({}, d["P0"], d["P1"], "cpu")
-    carry = ks.unflat(d, "carry/")
-    kf_pyr = tuple(pyramid.build_pyramid(ops.dev(d["kf_left"]), ks.LEVELS))
-    carry["feats"]["anchor"] = ops.np(klt.extract_anchors(kf_pyr, ops.dev(carry["feats"]["anchor_uv"]), ops.cfg.klt))
-    feed = ks.sub(d, "feed/")
-    pyrs = {}
-    for name in ("pyr_l", "pyr_r"):
-        pyrs[name] = [ops.np(p) for p in pyramid.build_pyramid(ops.dev(d["left" if name == "pyr_l" else "right"]),
-                                                               ks.LEVELS)]
-        feed.update({f"{name}/{i}": p for i, p in enumerate(pyrs[name])})
-    pyr_l = tuple(ops.dev(p) for p in pyrs["pyr_l"])
-    feed["anchors/anchor"] = ops.np(klt.extract_anchors(pyr_l, ops.dev(feed["detect/uv"]), ops.cfg.klt))
-    settings = {}
-    for name in SETTINGS:
-        out = {**ks.sub(d, "all/"), **ks.sub(d, f"{name}/")}
-        # the rebuilt pyramids and anchors stand in for the stored ones
-        settings[name] = {"stages": {**ks.sub(out, "stages/"), **{k: v for k, v in feed.items()
-                                                                   if k.startswith(("pyr_", "anchors/"))}},
-                          "steps": ks.sub(out, "steps/")}
-    return {"d": d, "ops": ops, "carry": carry, "feed": feed, "settings": settings, "h": int(d["h"]),
-            "pyr_digest": {name: _digest(p) for name, p in pyrs.items()}}
+    """The fixture, with what it leaves out rebuilt by the port
+    (`kitti_stages.load_stage_fixture`)."""
+    return ks.load_stage_fixture(FIXTURE, "cpu")
 
 
 @pytest.fixture(scope="module")
 def port(fx):
     """The port on the CPU: the stages fed the reference's inputs, and one
     whole frame from the carry."""
-    ops, d = fx["ops"], fx["d"]
-    stages = ks.stage_outputs(ops, fx["carry"], d["left"], d["right"], fx["h"], feed=fx["feed"], solve=False)
-    steps = ks.step_outputs(ops, fx["carry"], [(d["left"], d["right"])], fx["h"], 1)
-    return {"stages": stages, "steps": steps}
-
-
-def _gaps(a, b):
-    return {**ks.stage_gaps(a["stages"], b["stages"]), **ks.step_gaps(a["steps"], b["steps"])}
-
-
-def _spread(fx):
-    s = fx["settings"]
-    return {**ks.spread(ks.stage_gaps, {n: s[n]["stages"] for n in SETTINGS}),
-            **ks.spread(ks.step_gaps, {n: s[n]["steps"] for n in SETTINGS})}
+    return ks.run_stage_fixture(fx)
 
 
 def test_fixture_is_the_soak_keyframe(fx):
@@ -122,10 +70,10 @@ def test_fixture_is_the_soak_keyframe(fx):
 def test_port_stage_within_the_settings_spread(fx, port, stage):
     """Each quantity of the stage within twice the settings' spread (or the
     unit bar where they agree exactly) of every setting."""
-    spread = _spread(fx)
+    spread = ks.fixture_spread(fx["settings"])
     quantities = ks.ONE_STEP if stage == "one step" else STAGES[stage]
     for name in SETTINGS:
-        gaps = _gaps(port, fx["settings"][name])
+        gaps = ks.fixture_gaps(port, fx["settings"][name])
         for q in quantities:
             assert gaps[q] <= ks.bar(q, spread[q]), (stage, q, name, gaps[q], spread[q])
 

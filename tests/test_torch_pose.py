@@ -73,6 +73,37 @@ def test_matches_reference(strategy):
         assert abs(int(n_t) - n_r) <= max(3, 0.02 * len(in_r))
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_verification_rounds_are_the_loop_closers(seed):
+    """`estimate_pose(verification=True)` (what the loop closer's
+    `_verify_device` calls, csrc/pose.cu on the card) is the reference
+    closer's loop (legoslam_tpu/pipeline/loop_closure.py `_verify_device`:
+    4 Huber rounds, each warm-started from the last, inliers by the raw
+    chi2): bit for bit the same loop written out in the port, and within
+    test_matches_reference's bars of the reference's."""
+    T_prior, P, uv, valid, T_true = _problem(seed)
+    th = 5.991
+    T_v, in_v, n_v = pose_k.estimate_pose_eager(T_INTR, t(T_prior), t(P), t(uv), t(valid), chi2_th=th,
+                                                drop_kernel_after=3, cfg=t_lm.LMConfig(iterations=10),
+                                                verification=True)
+    T, inlier = t(T_prior), t(valid)
+    Tj, inlier_j = j(T_prior), j(valid)
+    for _ in range(4):
+        T, _ = t_lm.solve_pose(T_INTR, T, t(P), t(uv), inlier, kernel="huber", delta=th,
+                               cfg=t_lm.LMConfig(iterations=10))
+        r, _ = t_rep.pose_only_edge(T_INTR, T, t(P), t(uv))
+        inlier = t(valid) & (torch.sum(r * r, dim=-1) <= th)
+        Tj, _ = j_lm.solve_pose(J_INTR, Tj, j(P), j(uv), inlier_j, kernel="huber", delta=th,
+                                cfg=j_lm.LMConfig(iterations=10))
+        rj, _ = j_rep.pose_only_edge(J_INTR, Tj, j(P), j(uv))
+        inlier_j = j(valid) & (jnp.sum(rj * rj, axis=-1) <= th)
+    assert torch.equal(T_v, T) and torch.equal(in_v, inlier) and int(n_v) == int(inlier.sum())
+    assert_close(to_numpy(T_v), T_true, 5e-3)
+    assert_close(to_numpy(T_v), np.asarray(Tj), 1e-3)
+    assert agreement(to_numpy(in_v), np.asarray(inlier_j)) > 0.98
+    assert abs(int(n_v) - int(np.asarray(inlier_j).sum())) <= max(3, 0.02 * len(valid))
+
+
 def test_all_invalid():
     T_prior, P, uv, _, _ = _problem(1, n=64)
     T_t, in_t, n_t = pose_k.estimate_pose_eager(T_INTR, t(T_prior), t(P), t(uv), torch.zeros(64, dtype=torch.bool))
