@@ -14,7 +14,9 @@
    forward then backward; and again at the loop closer's shapes, 256 lanes
    and 3 levels of 94x310 from quantized half-resolution images) and the
    pose estimate (512 edges, held bit for bit: the same pose, inliers, n_in
-   and LM attempts in every round), with the agreement bars stated below,
+   and LM attempts in every round; held alike at 4096 edges and with a
+   prior 0.3 rad off, whose LM steps take the retraction's sinf branch,
+   each timed too), with the agreement bars stated below,
    their work counts (GN lane-iterations, LM attempts) against the plain
    versions', the roofline bound of that work on this card (the KLT bytes
    are those of the pixels the lanes' windows touch, not whole pyramids),
@@ -72,7 +74,8 @@
    plain version on them, forward and backward, under the bars of step 3;
    the inputs of the pose kernel's verification launches (warm-started
    rounds, 256 edges) are kept too, and the plain version on the first
-   LOOP_POSE_HELD of them on the card must give the kernel's bits.
+   LOOP_POSE_HELD of them on the card must give the kernel's bits; the
+   first of them is timed (`device_ms`).
 
 10. KITTI through the command line, at full size: the first 150 frames of
    the JAX package's 1,000-frame soak (376x1240 PNGs written with zlib,
@@ -287,6 +290,10 @@ KLT_FLOP_TEMPLATE = 81 * 12   # frame mode samples its 9x9 template per lane and
 POSE_FLOP_PER_EDGE = 202
 # K2's verification launches of the loop course held against the plain version.
 LOOP_POSE_HELD = 12
+# Step 3's further K2 holds: 4096 edges (csrc/pose.cu's kMaxEdges, its ring
+# wrapping eight times a pass) and a prior this many rad off about x.
+POSE_MAX_EDGES = 4096
+POSE_LARGE_ANGLE = 0.3
 MAIN_KERNELS = ("klt_pyramid_anchored", "estimate_pose")  # launched on every tracking frame of the default path
 
 
@@ -556,22 +563,28 @@ def klt_inputs(frames, dev):
     return anchors.contiguous(), kp.contiguous(), tuple(pyramid.build_pyramid(img1, 4)), guess, valid, cfg
 
 
-def pose_inputs(dev):
-    """512 edges: a known pose, noisy projections, 10% gross outliers."""
+def pose_inputs(dev, n=LANES, large_angle=False):
+    """n edges: a known pose, noisy projections, 10% gross outliers; the
+    prior near the pose, or with `large_angle` its rotation POSE_LARGE_ANGLE
+    rad off, so the LM steps take the retraction's sinf branch."""
     from legoslam_tpu_torch.geometry import se3
     from legoslam_tpu_torch.solver import reprojection
 
     rng = np.random.default_rng(SEED)
     intr = reprojection.Intrinsics(360.0, 360.0, 310.0, 94.0)
-    z = rng.uniform(4.0, 60.0, LANES)
-    P = np.stack([rng.uniform(-0.8, 0.8, LANES) * z, rng.uniform(-0.3, 0.3, LANES) * z, z], -1)
-    T_true = se3.se3_exp(torch.tensor([0.1, -0.05, 0.3, 0.01, 0.02, -0.01])).double().numpy()
+    z = rng.uniform(4.0, 60.0, n)
+    P = np.stack([rng.uniform(-0.8, 0.8, n) * z, rng.uniform(-0.3, 0.3, n) * z, z], -1)
+    xi_true = [0.1, -0.05, 0.3, 0.01, 0.02, -0.01]
+    T_true = se3.se3_exp(torch.tensor(xi_true)).double().numpy()
     pc = P @ T_true[:3, :3].T + T_true[:3, 3]
     uv = np.stack([360.0 * pc[:, 0] / pc[:, 2] + 310.0, 360.0 * pc[:, 1] / pc[:, 2] + 94.0], -1)
     uv += rng.normal(0, 0.3, uv.shape)
-    uv[: LANES // 10] += rng.normal(0, 30.0, (LANES // 10, 2))
-    valid = rng.uniform(size=LANES) > 0.05
-    T_prior = se3.se3_exp(torch.tensor([0.12, -0.03, 0.25, 0.0, 0.025, 0.0]))
+    uv[: n // 10] += rng.normal(0, 30.0, (n // 10, 2))
+    valid = rng.uniform(size=n) > 0.05
+    xi_prior = [0.12, -0.03, 0.25, 0.0, 0.025, 0.0]
+    if large_angle:
+        xi_prior = xi_true[:3] + [xi_true[3] + POSE_LARGE_ANGLE] + xi_true[4:]
+    T_prior = se3.se3_exp(torch.tensor(xi_prior))
 
     def t(x, dtype=torch.float32):
         return torch.as_tensor(np.asarray(x)).to(dtype).to(dev).contiguous()
@@ -810,6 +823,23 @@ def run_slices(dev, kind, smi, klt_k, pose_k, frames, lap_frames, kitti_root, sc
                     "replaces": "legoslam_tpu/solver/pose_pallas.py:311",
                     "max_abs_err": terr, "ms": ms, "plain_ms": plain, "bound_ms": k2_bound, "bound_by": k2_kind,
                     "work": {"lm_attempts": sum(a_k), "plain": sum(a_e)}})
+    for label, n, large in ((f"{POSE_MAX_EDGES} edges", POSE_MAX_EDGES, False),
+                            (f"prior {POSE_LARGE_ANGLE} rad off", LANES, True)):
+        args = pose_inputs(dev, n, large)[:5]
+        at_k = torch.zeros((outer,), dtype=torch.int32, device=dev)
+        at_e = torch.zeros((outer,), dtype=torch.int32, device=dev)
+        T_k, in_k, n_k = pose_k.estimate_pose_kernel(*args, attempts=at_k)
+        T_e, in_e, n_e = pose_k.estimate_pose_eager(*args, attempts=at_e)
+        torch.cuda.synchronize()
+        terr_x = float((T_k - T_e).abs().max())
+        ms_x = device_ms(lambda args=args: pose_k.estimate_pose_kernel(*args))
+        print(f"K2 pose, {label}: max |dT| {terr_x:.2e} (bar {POSE_T_ATOL}), inliers equal "
+              f"{torch.equal(in_k, in_e)}, n_in kernel {int(n_k)} plain {int(n_e)}, LM attempts per round kernel "
+              f"{at_k.tolist()} plain {at_e.tolist()}; kernel {ms_x:.5f} ms/launch (device)", flush=True)
+        check(terr_x <= POSE_T_ATOL and torch.equal(in_k, in_e) and int(n_k) == int(n_e),
+              f"K2 disagrees with the plain version at {label}")
+        check(all(abs(x - y) <= POSE_ROUND_TOL for x, y in zip(at_k.tolist(), at_e.tolist())),
+              f"K2 work count disagrees with the plain version at {label}")
 
     # --- 4. the BA-off slice -------------------------------------------------
     from legoslam_tpu_torch.pipeline import backend
@@ -1247,6 +1277,10 @@ def run_slices(dev, kind, smi, klt_k, pose_k, frames, lap_frames, kitti_root, sc
           f"{min(len(calls), LOOP_POSE_HELD)} of {len(calls)} launches' own inputs ({int(calls[0][0][4].numel())} "
           f"edges): {len(differ)} differ {differ[:5]}", flush=True)
     check(not differ, "K2's verification rounds and their plain version differ")
+    args, kw = calls[0][0], calls[0][1]
+    ms_verify = device_ms(lambda: pose_k.estimate_pose_kernel(*args, **kw))
+    print(f"loop closed: K2 verification launch {ms_verify:.5f} ms/launch (device) on the first launch's inputs "
+          f"({int(args[4].numel())} edges, LM attempts {calls[0][3].tolist()})", flush=True)
 
     launches_kitti = run_kitti_steps(kind, smi, kitti_root, scratch, reset_counts, read_counts)
     launches_more = run_chunk_async_graph_dist(dev, kind, smi, frames, ds, config, inline, ba_calls[-1][1],

@@ -1,13 +1,18 @@
 """csrc/pose.cu's per-edge, solve and retraction arithmetic compiled for the
 host, so a CPU test can hold it against the plain version bit for bit.
 
-The kernel's device functions (a pass's three phases `chunk_terms`,
-`chunk_chain`, `combine_sums` and what they call, `damped_solve`,
-`retract`) are cut from the source as they stand and compiled with g++ at
--O2 with -ffp-contract=off (the kernel's -fmad=false; `__fmaf_rn` is the
-C library's `fmaf`, which `host_fma` exposes), around a harness that runs one pass's phases for
-each of the 256 workers in turn, where the kernel puts its barriers.  `sinf` is the host's,
-not CUDA's, so the retraction is exact here only on the small-angle branch.
+The kernel's device functions (a producer lane's terms into a ring slot,
+`produce_chi` / `produce_rest`, the chains' loads and adds, `unit_group` / `load_group` /
+`add_group` for b and chi and `load_h` / `add_h` for H's lanes,
+`combine_lanes`, and `lu_factor` / `lu_solve` / `damped_solve`, `retract`
+and what they call) are cut from the source as they stand and compiled
+with g++ at -O2 with -ffp-contract=off (the kernel's -fmad=false;
+`__fmaf_rn` is the C library's `fmaf`, which `host_fma` exposes), around a
+harness that runs a pass a unit of four chunks at a time: each chunk's 32
+producer lanes, then each chain over the unit, in the groups and through
+the addresses the kernel's chain warps use.  The ring's synchronisation
+is the card's alone.  `sinf` is the host's, not CUDA's,
+so the retraction is exact here only on the small-angle branch.
 """
 
 from __future__ import annotations
@@ -23,8 +28,11 @@ from pathlib import Path
 import numpy as np
 
 SOURCE = Path(__file__).resolve().parent.parent / "legoslam_tpu_torch" / "csrc" / "pose.cu"
-FUNCTIONS = ("clamp_min", "clamp_max", "edge_terms", "huber", "edge_pass_terms", "chunk_terms", "chain",
-             "chunk_chain", "chain_slot", "combine_sums", "damped_solve", "retract")
+FUNCTIONS = ("clamp_min", "clamp_max", "edge_residual", "edge_jacobian", "huber_linear", "huber_rho0", "huber_rho12",
+             "produce_chi", "produce_rest",
+             "load_group",
+             "add_group", "unit_group", "load_h", "add_h", "combine_lanes", "lu_factor", "lu_solve", "damped_solve",
+             "retract")
 
 HARNESS = r"""
 extern "C" void host_pass(const float* T, const float* pw, const float* uv, const unsigned char* use, int E,
@@ -39,20 +47,37 @@ extern "C" void host_pass(const float* T, const float* pw, const float* uv, cons
     flag[e] = use[e] ? kValid : 0;
   }
   const Edges ed{px, py, pz, u, v, flag};
-  static float cjw[12 * kChunk], cJ[12 * kChunk], cbt[12 * kChunk], cm[kChunk];
-  float acc[kWorkers];
-  for (int wt = 0; wt < kWorkers; ++wt) acc[wt] = 0.0f;
-  for (int c0 = 0; c0 < E; c0 += kChunk) {  // the workers' phases, split where the kernel's barriers are
-    const int n = E - c0 < kChunk ? E - c0 : kChunk;
-    for (int wt = 0; wt < kWorkers; ++wt)
-      chunk_terms(wt, c0, n, Tr, ed, kValid, k, robust != 0, delta, cjw, cJ, cbt, cm);
-    for (int wt = 0; wt < kWorkers; ++wt) acc[wt] = chunk_chain(wt, n, cjw, cJ, cbt, cm, acc[wt]);
+  alignas(16) static float unit[kUnit * kSlotFloats];
+  const int nu = E > 0 ? (E + kUnit * kChunk - 1) / (kUnit * kChunk) : 1;
+  float b[6] = {0.0f}, chi = 0.0f, h[24][6] = {{0.0f}};
+  for (int u = 0; u < nu; ++u) {  // a unit's producer lanes, then each chain over it, in the chain warps' groups
+    for (int c = 0; c < kUnit; ++c)
+      for (int i = 0; i < kChunk; ++i)
+        produce_rest(produce_chi(Tr, ed, kChunk * (kUnit * u + c) + i, E, kValid, k, robust != 0, delta,
+                                 unit + c * kSlotFloats, i),
+                     k, robust != 0, delta, unit + c * kSlotFloats, i);
+    for (int j = 0; j < 2 * kUnit; ++j)
+      for (int a = 0; a < 6; ++a) {
+        float4 q[8];
+        load_group<8>(unit_group<8, 2>(unit, kSlotB + a * kBRow, j), q);
+        b[a] = add_group<8>(b[a], q);
+      }
+    for (int j = 0; j < kUnit; ++j) {
+      float4 q[8];
+      load_group<8>(unit_group<8, 1>(unit, kSlotChi, j), q);
+      chi = add_group<8>(chi, q);
+    }
+    for (int j = 0; j < 4 * kUnit; ++j)
+      for (int r = 0; r < 24; ++r) {
+        HGroup g;
+        load_h(unit + (j / 4) * kSlotFloats, r, j % 4, g);
+        add_h(h[r], g);
+      }
   }
-  float s_part[kChains], s_tot[44];
-  for (int wt = 0; wt < kWorkers; ++wt)
-    if (chain_slot(wt) >= 0) s_part[chain_slot(wt)] = acc[wt];
-  for (int wt = 0; wt < kWorkers; ++wt) combine_sums(wt, s_part, s_tot);
-  for (int q = 0; q < 43; ++q) out[q] = s_tot[q];
+  for (int a = 0; a < 6; ++a)
+    for (int c = 0; c < 6; ++c) out[6 * a + c] = combine_lanes(h[a][c], h[6 + a][c], h[12 + a][c], h[18 + a][c]);
+  for (int a = 0; a < 6; ++a) out[36 + a] = -b[a];
+  out[42] = chi;
 }
 
 extern "C" void host_fma(const float* a, const float* b, const float* c, int n, float* out) {
@@ -84,6 +109,9 @@ PRELUDE = r"""
 #define __host__
 #define __forceinline__ inline
 #define __fmaf_rn fmaf
+struct float2 { float x, y; };
+struct float4 { float x, y, z, w; };
+inline float2 make_float2(float x, float y) { return float2{x, y}; }
 """
 
 def _function(src: str, name: str) -> str:
@@ -102,10 +130,12 @@ def _function(src: str, name: str) -> str:
 
 
 def _constants(src: str) -> str:
-    """The source's constants and Intr, and its Edges struct."""
-    start = src.index("constexpr int kThreads")
-    edges = src.index("struct Edges {")
-    return src[start:src.index("struct LMParams")] + src[edges:src.index("};", edges) + 2] + "\n"
+    """The source's constants and Intr, and its Edges, EdgeAt, EdgePass and
+    HGroup structs."""
+    start = src.index("constexpr int kCtrlWarp")
+    structs = [src[i:src.index("};", i) + 2]
+               for i in (src.index(f"struct {name} {{") for name in ("Edges", "EdgeAt", "EdgePass", "HGroup"))]
+    return src[start:src.index("struct LMParams")] + "\n".join(structs) + "\n"
 
 
 def build(out_dir: str = None) -> ctypes.CDLL:

@@ -197,7 +197,12 @@ def test_klt_frame_auto_dispatch_and_bad_input(cuda):
     assert kp_c.shape == (0, 2) and ok_c.shape == (0,)
 
 
-def _pose_case(dev, n=512, seed=0):
+# A prior this many rad off the true rotation (about x): the LM steps then
+# take the retraction's sinf branch (above se3's small angle, 0.05 rad).
+LARGE_ANGLE = 0.3
+
+
+def _pose_case(dev, n=512, seed=0, large_angle=False):
     rng = np.random.default_rng(seed)
     z = rng.uniform(4.0, 60.0, n)
     P = np.stack([rng.uniform(-0.8, 0.8, n) * z, rng.uniform(-0.3, 0.3, n) * z, z], -1)
@@ -207,7 +212,8 @@ def _pose_case(dev, n=512, seed=0):
     uv += rng.normal(0, 0.3, uv.shape)
     uv[: n // 10] += rng.normal(0, 30.0, (n // 10, 2))
     valid = rng.uniform(size=n) > 0.05
-    T_prior = se3.se3_exp(torch.tensor([0.12, -0.03, 0.25, 0.0, 0.025, 0.0]))
+    xi_prior = [0.1, -0.05, 0.3, 0.01 + LARGE_ANGLE, 0.02, -0.01] if large_angle else [0.12, -0.03, 0.25, 0.0, 0.025, 0.0]
+    T_prior = se3.se3_exp(torch.tensor(xi_prior))
     intr = reprojection.Intrinsics(360.0, 360.0, 310.0, 94.0)
     f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
     return intr, T_prior.to(dev), f32(P), f32(uv), torch.from_numpy(valid).to(dev)
@@ -215,16 +221,32 @@ def _pose_case(dev, n=512, seed=0):
 
 @pytest.mark.parametrize("verification", [False, True])
 @pytest.mark.parametrize("strategy", ["default", "strategy1"])
-@pytest.mark.parametrize("n", [0, 64, 512, 1000])
-def test_pose_kernel_matches_eager(cuda, strategy, n, verification):
-    intr, T, P, uv, valid = _pose_case(cuda, n=n)
+@pytest.mark.parametrize("n,large_angle", [(0, False), (1, False), (31, False), (33, False), (64, False),
+                                           (511, False), (512, False), (513, False), (1000, False), (4096, False),
+                                           (512, True)])
+def test_pose_kernel_matches_eager(cuda, strategy, n, large_angle, verification, monkeypatch):
+    """Bit for bit, at edge counts on either side of csrc/pose.cu's chunks
+    of 32 and of its ring of 16 chunks, up to its kMaxEdges (4096), and with
+    a prior LARGE_ANGLE rad off, whose steps take the retraction's sinf
+    branch (the plain version's torch.sin, CUDA's sinf on the card)."""
+    intr, T, P, uv, valid = _pose_case(cuda, n=n, large_angle=large_angle)
     cfg = lm.LMConfig(strategy=strategy)
     kw = {"cfg": cfg, "verification": verification, "drop_kernel_after": 3 if verification else 2}
     n0 = pose_k.estimate_pose_kernel.launches
     at_k = torch.full((4,), -1, dtype=torch.int32, device=cuda)
     at_e = torch.zeros((4,), dtype=torch.int32, device=cuda)
     T_k, in_k, n_k = pose_k.estimate_pose_kernel(intr, T, P, uv, valid, attempts=at_k, **kw)
+    steps, retract = [], se3.retract
+
+    def recording_retract(T_, dx):
+        steps.append(float(torch.linalg.vector_norm(dx[3:])))
+        return retract(T_, dx)
+
+    monkeypatch.setattr(se3, "retract", recording_retract)
     T_e, in_e, n_e = pose_k.estimate_pose_eager(intr, T, P, uv, valid, attempts=at_e, **kw)
+    monkeypatch.undo()
+    if large_angle:
+        assert max(steps) >= 0.05, max(steps)  # the sinf branch was taken
     T_0, in_0, n_0 = pose_k.estimate_pose_kernel(intr, T, P, uv, valid, **kw)
     torch.cuda.synchronize()
     assert pose_k.estimate_pose_kernel.launches == n0 + 2

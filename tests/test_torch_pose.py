@@ -104,6 +104,35 @@ def test_verification_rounds_are_the_loop_closers(seed):
     assert abs(int(n_v) - int(np.asarray(inlier_j).sum())) <= max(3, 0.02 * len(valid))
 
 
+def test_matches_reference_above_small_angle(monkeypatch):
+    """A prior 0.3 rad off the true rotation: the LM steps take
+    `se3.retract`'s trig branch (rotation above the small angle, 0.05 rad),
+    which reads `torch.sin` (CUDA's sinf on the card) where the reference
+    reads `jnp.sin`.  The port's plain pose against the reference's
+    `lm.estimate_pose` within test_matches_reference's bars (T within 1e-3,
+    inlier masks agree > 98%, |dn_in| <= max(3, 2%)); they part by ~2e-7 in
+    T on this host."""
+    T_prior, P, uv, valid, T_true = _problem(0)
+    xi = np.array([0.1, -0.05, 0.3, 0.01 + 0.3, 0.02, -0.01], np.float32)
+    T_prior = np.asarray(j_se3.se3_exp(jnp.asarray(xi)))
+    steps, retract = [], t_lm.se3.retract
+
+    def recording_retract(T, dx):
+        steps.append(float(torch.linalg.vector_norm(dx[3:])))
+        return retract(T, dx)
+
+    monkeypatch.setattr(t_lm.se3, "retract", recording_retract)
+    T_t, in_t, n_t = pose_k.estimate_pose_eager(T_INTR, t(T_prior), t(P), t(uv), t(valid))
+    monkeypatch.undo()
+    assert sum(x >= 0.05 for x in steps) >= 2, steps  # the trig branch, more than once
+    T_x, in_x, n_x = j_lm.estimate_pose(J_INTR, j(T_prior), j(P), j(uv), j(valid))
+    T_t, in_t, in_x = to_numpy(T_t), to_numpy(in_t), np.asarray(in_x)
+    assert_close(T_t, T_true, 5e-3)
+    assert_close(T_t, np.asarray(T_x), 1e-3)
+    assert agreement(in_t, in_x) > 0.98
+    assert abs(int(n_t) - int(n_x)) <= max(3, 0.02 * len(in_x))
+
+
 def test_all_invalid():
     T_prior, P, uv, _, _ = _problem(1, n=64)
     T_t, in_t, n_t = pose_k.estimate_pose_eager(T_INTR, t(T_prior), t(P), t(uv), torch.zeros(64, dtype=torch.bool))

@@ -19,7 +19,7 @@ composition use (`rounding.fma`) against exact arithmetic and the kernel's
 within 1e-6 of the solution's largest entry (the probe's largest gap:
 3.1e-7); `small_matmul`'s orders and `rounding.sqrt` against exact
 arithmetic.  The pose kernel's own arithmetic (csrc/pose.cu's per-edge
-terms, its pass's chunks, chains and sums, its solve and retraction),
+terms, its pass's units, chains and sums, its solve and retraction),
 compiled for the host by tests/pose_host.py, gives the plain version's
 bits.
 """
@@ -266,7 +266,7 @@ def _pose_problem(seed, E):
 
 @pytest.mark.parametrize("E", [37, 300, 512, 777])
 def test_kernel_arithmetic_is_the_plain_versions(host, E):
-    """csrc/pose.cu's pass (Huber and trivial; its chunks of 512 edges, its
+    """csrc/pose.cu's pass (Huber and trivial; its units of 128 edges, its
     chains and their sums), its damped solve (both LM strategies) and its
     retraction (below the small angle, where no sinf is read) give
     `lm.pose_pass`'s, `lm.lu_solve`'s and `se3.retract`'s bits."""
