@@ -9,14 +9,19 @@
    phase reuses the frames) and writes step 10's KITTI-format sequence to
    a temporary directory (removed at the end).
 3. Kernels against their plain PyTorch versions at the main path's shapes:
-   the anchored pyramid KLT (512 lanes, 3 levels of 188x620), the same
+   the anchored pyramid KLT (512 lanes, 3 levels of 188x620; bit for bit:
+   positions, masks and GN lane-iterations equal), the same
    kernel source in frame mode (consecutive frames, 512 lanes, 4 levels,
    forward then backward; and again at the loop closer's shapes, 256 lanes
    and 3 levels of 94x310 from quantized half-resolution images) and the
    pose estimate (512 edges, held bit for bit: the same pose, inliers, n_in
    and LM attempts in every round; held alike at 4096 edges and with a
    prior 0.3 rad off, whose LM steps take the retraction's sinf branch,
-   each timed too), with the agreement bars stated below,
+   each timed too), with the agreement bars stated below; then, bit for
+   bit and timed with their bounds, the configurations the kernels widened
+   to take: K1 anchored at half-patches 5 and 9, K1 frame mode over 9
+   levels of step 10's KITTI frames at 376x1240, and K2 at 6,000 edges (in
+   its shared copy) and 8,192 and 16,384 (read from global memory),
    their work counts (GN lane-iterations, LM attempts) against the plain
    versions', the roofline bound of that work on this card (the KLT bytes
    are those of the pixels the lanes' windows touch, not whole pyramids),
@@ -124,8 +129,18 @@
    imports no JAX), on the card and on the CPU: every stage and one whole
    step within tests/test_torch_kitti_stages.py's bars against each of XLA's
    three CPU settings, and the constant-velocity prior, tracking (uv and
-   mask) and the pose (T, inliers, n_in) equal between card and CPU bit for
-   bit; a difference is printed with its quantity, shape and size.
+   mask), the pose (T, inliers, n_in) and scanline stereo (uv_r, matches)
+   equal between card and CPU bit for bit; a difference is printed with its
+   quantity, shape and size.
+17. The main path at the configurations the kernels widened to take (C20):
+   (a) step 5's 40 frames with klt_half_patch 5 and max_features 8192 (K1
+   at an 11x11 patch over 8,192 lanes, K2 reading 8,192 edges from global
+   memory), (b) the same with klt_half_patch 9, (c) the first 30 frames of
+   step 10's sequence at 376x1240 through config/kitti_00.yaml with
+   track_mode frame and klt_pyramid_levels 9: every frame TRACKING_GOOD,
+   ATE under ATE_MAX for (a) and (b), each kernel the run needs launched
+   at the widened configuration, and on each run's last frame the plain
+   versions on the launches' own inputs give the kernels' bits.
 
 The kernel launch counts are set to 0 just before each slice and read just
 after it (step 10's subprocess is counted through step 11's run of the same
@@ -274,12 +289,18 @@ PG_ITERATIONS, PG_STOP = 50, 1e-10
 DIST_CHI_RTOL, DIST_POSE_ATOL, DIST_POINT_ATOL = 1e-3, 1e-3, 5e-3
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12    # float32 outside the tensor cores
-# FLOPs of one KLT GN iteration: 81 bilinear samples (three lerps of 4),
-# 49 residual/gradient terms (err 1, gradients 4, cost 2, H 6, b 4), the
-# 2x2 solve; of one lane's ZNCC gate: 49 samples and 49 x 8 for the sums.
-KLT_FLOP_PER_ITER = 81 * 12 + 49 * 17 + 20
-KLT_FLOP_ZNCC = 49 * 12 + 49 * 8
-KLT_FLOP_TEMPLATE = 81 * 12   # frame mode samples its 9x9 template per lane and level
+
+
+def klt_flop(half_patch: int = 3):
+    """FLOPs of one KLT GN iteration, of one lane's ZNCC gate and of one
+    frame-mode template at `half_patch` (h = 3: a 9x9 halo window of 81
+    samples, 49 terms).  An iteration: the window's bilinear samples (three
+    lerps of 4), the terms (err 1, gradients 4, cost 2, H 6, b 4), the 2x2
+    solve; the gate: the patch's samples and 8 for its sums a term; a
+    template: its window's samples, per lane and level."""
+    window, terms = (2 * half_patch + 3) ** 2, (2 * half_patch + 1) ** 2
+    return window * 12 + terms * 17 + 20, terms * 20, window * 12
+
 # FLOPs of one pose edge per LM pass, as the function needs them:
 # projection and Jacobian (~40), Huber weights with W symmetric (~15), the
 # rows of J^T W (36) and the b terms (14), the sums of H's 21 upper entries
@@ -288,12 +309,28 @@ KLT_FLOP_TEMPLATE = 81 * 12   # frame mode samples its 9x9 template per lane and
 # reference's bits (its H is not symmetric bit for bit): 63 FLOPs more,
 # not counted.
 POSE_FLOP_PER_EDGE = 202
+# Step 3's holds of the widened kernels, each bit for bit and timed: K1
+# anchored at these half-patches, K1 frame mode over WIDE_KITTI's 9 levels
+# of the KITTI frames at 376x1240, and K2 at these edge counts (the first
+# in the shared copy on an H100, the others past it, in global memory).
+KLT_WIDE_HALF_PATCHES = (5, 9)
+POSE_WIDE_EDGES = (6000, 8192, 16384)
 # K2's verification launches of the loop course held against the plain version.
 LOOP_POSE_HELD = 12
-# Step 3's further K2 holds: 4096 edges (csrc/pose.cu's kMaxEdges, its ring
-# wrapping eight times a pass) and a prior this many rad off about x.
+# Step 3's further K2 holds: 4096 edges (its ring wrapping eight times a
+# pass) and a prior this many rad off about x.
 POSE_MAX_EDGES = 4096
 POSE_LARGE_ANGLE = 0.3
+# Step 17: the main path at configurations the card's kernels took only
+# since they widened (ROADMAP C20), each on the bench world with BA inline
+# at its defaults: (a) K1 at an 11x11 patch over 8,192 lanes and K2 past its
+# shared copy, (b) K1 at 19x19; and (c) K1's frame entry over 9 levels of
+# the KITTI soak's first frames at 376x1240 (config/kitti_00.yaml).  The JAX
+# reference tracks every frame of each on a CPU (`python -m
+# tests.ba_parity_report --widened`).
+WIDE_BENCH = {"a": {"klt_half_patch": 5, "max_features": 8192}, "b": {"klt_half_patch": 9, "max_features": 8192}}
+WIDE_KITTI = {"track_mode": "frame", "klt_pyramid_levels": 9, "image_scale": 1.0}
+WIDE_KITTI_FRAMES = 30
 MAIN_KERNELS = ("klt_pyramid_anchored", "estimate_pose")  # launched on every tracking frame of the default path
 
 
@@ -341,21 +378,19 @@ def device_ms(fn, reps: int = 50, trials: int = 5) -> float:
     return float(np.median(out))
 
 
-KLT_WINDOW_RADIUS = 4     # the 9x9 halo window around a lane's position
-
-
-def touched_pixels(shape, lo, hi) -> int:
+def touched_pixels(shape, lo, hi, radius: int = 4) -> int:
     """Pixels of one pyramid level inside the union of the lanes' windows.
     Lane n's window centre moved within the box `lo[n]`..`hi[n]` (x, y in
-    this level's pixels); bilinear sampling of the 9x9 halo window reads
-    floor(centre - 4) .. floor(centre + 4) + 1, clamped to the image as
-    ops/interp.py clamps."""
+    this level's pixels); bilinear sampling of the halo window (2 radius + 1
+    wide: 9x9 at the default half-patch 3, radius h + 1) reads
+    floor(centre - radius) .. floor(centre + radius) + 1, clamped to the
+    image as ops/interp.py clamps."""
     h, w = shape
     lo, hi = np.asarray(lo, np.float64).reshape(-1, 2), np.asarray(hi, np.float64).reshape(-1, 2)
-    x0 = np.clip(np.floor(lo[:, 0] - KLT_WINDOW_RADIUS), 0, w - 1).astype(np.int64)
-    y0 = np.clip(np.floor(lo[:, 1] - KLT_WINDOW_RADIUS), 0, h - 1).astype(np.int64)
-    x1 = np.clip(np.floor(hi[:, 0] + KLT_WINDOW_RADIUS) + 1, 0, w - 1).astype(np.int64)
-    y1 = np.clip(np.floor(hi[:, 1] + KLT_WINDOW_RADIUS) + 1, 0, h - 1).astype(np.int64)
+    x0 = np.clip(np.floor(lo[:, 0] - radius), 0, w - 1).astype(np.int64)
+    y0 = np.clip(np.floor(lo[:, 1] - radius), 0, h - 1).astype(np.int64)
+    x1 = np.clip(np.floor(hi[:, 0] + radius) + 1, 0, w - 1).astype(np.int64)
+    y1 = np.clip(np.floor(hi[:, 1] + radius) + 1, 0, h - 1).astype(np.int64)
     cover = np.zeros((h + 1, w + 1), np.int64)  # a 2-D difference array of the boxes
     np.add.at(cover, (y0, x0), 1)
     np.add.at(cover, (y0, x1 + 1), -1)
@@ -364,7 +399,7 @@ def touched_pixels(shape, lo, hi) -> int:
     return int((cover.cumsum(0).cumsum(1)[:h, :w] > 0).sum())
 
 
-def klt_window_bytes(pyr, scale, levels, valid, *tracks) -> int:
+def klt_window_bytes(pyr, scale, levels, valid, *tracks, half_patch: int = 3) -> int:
     """Bytes of `pyr`'s first `levels` levels that a launch must read: per
     level, the union over the valid lanes of the windows along each lane's
     way.  `tracks` are (N, 2) level-0 positions the lane's window visited
@@ -375,7 +410,8 @@ def klt_window_bytes(pyr, scale, levels, valid, *tracks) -> int:
     pts = np.stack([t.detach().float().cpu().numpy()[valid] for t in tracks])  # (T, n, 2)
     pts = np.where(np.isfinite(pts), pts, pts[:1])
     lo, hi = pts.min(0), pts.max(0)
-    return 4 * sum(touched_pixels(tuple(pyr[k].shape), lo * scale ** k, hi * scale ** k) for k in range(levels))
+    return 4 * sum(touched_pixels(tuple(pyr[k].shape), lo * scale ** k, hi * scale ** k, half_patch + 1)
+                   for k in range(levels))
 
 
 def bound(flop: float, nbytes: float):
@@ -546,16 +582,16 @@ def count_host_reads(fn):
     return out, sum("synchroniz" in str(w.message) for w in caught)
 
 
-def klt_inputs(frames, dev):
+def klt_inputs(frames, dev, half_patch: int = 3):
     """512 anchored lanes from frame 0's corners, tracked into frame 1 from
-    guesses a few px off."""
+    guesses a few px off, with templates of `half_patch`."""
     from legoslam_tpu_torch.ops import detect, klt, pyramid
 
     img0 = torch.from_numpy(frames[0][0]).to(dev)
     img1 = torch.from_numpy(frames[1][0]).to(dev)
     kp, ok = detect.detect(img0, detect.GFTTConfig(max_corners=LANES, min_distance=4, border=8))
     check(int(ok.sum()) >= LANES // 2, f"only {int(ok.sum())} corners")
-    cfg = klt.KLTConfig(levels=3)
+    cfg = klt.KLTConfig(levels=3, half_patch=half_patch)
     anchors = klt.extract_anchors(pyramid.build_pyramid(img0, 4), kp, cfg._replace(levels=4))
     rng = np.random.default_rng(SEED)
     guess = kp + torch.from_numpy(rng.uniform(-3.0, 3.0, (LANES, 2)).astype(np.float32)).to(dev)
@@ -650,7 +686,8 @@ def check_klt_frame(frames, dev, klt_k):
     px1 = klt_window_bytes(pyr1, cfg.scale, cfg.levels, ok, kp, torch.where(ok_k[:, None], kp_k, kp))
     whole = sum(p.numel() * 4 for p in pyr0) + sum(p.numel() * 4 for p in pyr1)
     nbytes = px0 + px1 + 2 * kp.numel() * 4 + ok.numel() + kp_k.numel() * 4 + ok_k.numel()
-    flop = gn_k * KLT_FLOP_PER_ITER + n_valid * cfg.levels * KLT_FLOP_TEMPLATE
+    per_iter, _, per_template = klt_flop()
+    flop = gn_k * per_iter + n_valid * cfg.levels * per_template
     b_ms, b_kind = bound(flop, nbytes)
     ms = device_ms(lambda: klt_k.klt_pyramid_kernel(pyr0, pyr1, kp, kp, ok, cfg))
     plain = wall_ms(lambda: klt_k.klt_pyramid_eager(pyr0, pyr1, kp, kp, ok, cfg), 10)
@@ -673,6 +710,98 @@ def check_klt_frame(frames, dev, klt_k):
             "max_abs_err": max(err, err_h), "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_kind,
             "work": {"gn_lane_iterations": gn_k, "plain": gn_e, "loop_closer_shapes_ms": ms_h,
                      "loop_closer_shapes_gn_lane_iterations": gn_hk, "loop_closer_shapes_plain": gn_he}}
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Two float32 tensors hold the same bits (NaN equal to itself)."""
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def clone(a):
+    """A copy of a kernel argument: tensors and sequences of them are
+    cloned, anything else (configs, intrinsics, numbers) is kept."""
+    if isinstance(a, torch.Tensor):
+        return a.clone()
+    if isinstance(a, (tuple, list)) and a and all(isinstance(x, torch.Tensor) for x in a):
+        return tuple(x.clone() for x in a)
+    return a
+
+
+def hold_klt_anchored(frames, dev, klt_k, half_patch, kind, smi):
+    """K1 anchored at `half_patch` on step 3's lanes: its plain version's
+    bits and GN lane-iterations, its time and the bound of its work."""
+    anchors, kp, pyr1, guess, valid, cfg = klt_inputs(frames, dev, half_patch)
+    it_k = torch.zeros((1,), dtype=torch.int32, device=dev)
+    it_e = torch.zeros((1,), dtype=torch.int32, device=dev)
+    kp_k, ok_k = klt_k.klt_pyramid_anchored_kernel(anchors, kp, pyr1, guess, valid, cfg, gn_iterations=it_k)
+    kp_e, ok_e = klt_k.klt_pyramid_anchored_eager(anchors, kp, pyr1, guess, valid, cfg, gn_iterations=it_e)
+    torch.cuda.synchronize()
+    gn = int(it_k)
+    err = float((kp_k - kp_e).abs().max())
+    check(same_bits(kp_k, kp_e) and torch.equal(ok_k, ok_e) and gn == int(it_e),
+          f"K1 at half-patch {half_patch} differs from its plain version")
+    check(int(ok_k.sum()) >= LANES // 4, f"K1 at half-patch {half_patch} tracked too few lanes")
+    n_valid = int(valid.sum())
+    tpl = n_valid * cfg.levels * anchors.shape[2] * anchors.shape[3] * 4
+    px = klt_window_bytes(pyr1, cfg.scale, cfg.levels, valid, guess, torch.where(ok_k[:, None], kp_k, guess),
+                          half_patch=half_patch)
+    # the valid lanes' templates and the pixels their windows touch between the guess and the result, the
+    # other inputs and the outputs
+    nbytes = tpl + px + kp.numel() * 4 + guess.numel() * 4 + valid.numel() + kp_k.numel() * 4 + ok_k.numel()
+    per_iter, per_gate, _ = klt_flop(half_patch)
+    flop = gn * per_iter + n_valid * per_gate
+    b_ms, b_kind = bound(flop, nbytes)
+    ms = device_ms(lambda: klt_k.klt_pyramid_anchored_kernel(anchors, kp, pyr1, guess, valid, cfg))
+    print(f"K1 klt at half-patch {half_patch} ({2 * half_patch + 1}x{2 * half_patch + 1}): the plain version's bits "
+          f"on {kp.shape[0]} lanes, {cfg.levels} levels of {tuple(pyr1[0].shape)}, success {int(ok_k.sum())}, GN "
+          f"lane-iterations {gn}; kernel {ms:.5f} ms/launch (device), bound {b_ms:.6f} ms ({b_kind}: "
+          f"{flop / 1e6:.3f} MFLOP, {nbytes / 1e6:.3f} MB, of which templates {tpl / 1e6:.3f} MB and the windows "
+          f"touch {px / 1e6:.3f} MB) on {kind} ({smi})", flush=True)
+    return {"half_patch": half_patch, "ms": ms, "bound_ms": b_ms, "bound_by": b_kind, "max_abs_err": err,
+            "gn_lane_iterations": gn}
+
+
+def hold_klt_frame_levels(kitti_root, dev, klt_k, kind, smi):
+    """K1 in frame mode over WIDE_KITTI's levels of the KITTI sequence's
+    frames 0 and 1 at 376x1240, 512 lanes from frame 0's corners: the plain
+    version's bits forward and backward, its time and bound."""
+    from legoslam_tpu_torch.ops import detect, klt, pyramid
+    from legoslam_tpu_torch.pipeline.dataset import KittiDataset
+
+    seq = KittiDataset(kitti_root, scale=WIDE_KITTI["image_scale"], use_native=False)
+    check(seq.init(), "the KITTI sequence does not open")
+    img0, img1 = (torch.from_numpy(np.ascontiguousarray(seq.next_frame().left, np.float32)).to(dev) for _ in range(2))
+    levels = WIDE_KITTI["klt_pyramid_levels"]
+    kp, ok = detect.detect(img0, detect.GFTTConfig(max_corners=LANES, min_distance=4, border=8))
+    kp = kp.contiguous()
+    cfg = klt.KLTConfig(levels=levels)
+    pyr0, pyr1 = tuple(pyramid.build_pyramid(img0, levels)), tuple(pyramid.build_pyramid(img1, levels))
+    check(min(p.shape[0] for p in pyr0) >= 1, f"a level of {levels} has no row")
+    it_k = torch.zeros((1,), dtype=torch.int32, device=dev)
+    it_e = torch.zeros((1,), dtype=torch.int32, device=dev)
+    kp_k, ok_k = klt_k.klt_pyramid_kernel(pyr0, pyr1, kp, kp, ok, cfg, gn_iterations=it_k)
+    kp_e, ok_e = klt_k.klt_pyramid_eager(pyr0, pyr1, kp, kp, ok, cfg, gn_iterations=it_e)
+    bk_k, okb_k = klt_k.klt_pyramid_kernel(pyr1, pyr0, kp_k, kp, ok_k, cfg)
+    bk_e, okb_e = klt_k.klt_pyramid_eager(pyr1, pyr0, kp_k, kp, ok_k, cfg)
+    torch.cuda.synchronize()
+    gn = int(it_k)
+    check(same_bits(kp_k, kp_e) and torch.equal(ok_k, ok_e) and gn == int(it_e)
+          and same_bits(bk_k, bk_e) and torch.equal(okb_k, okb_e),
+          f"K1 frame mode over {levels} levels differs from its plain version")
+    n_valid = int(ok.sum())
+    px = (klt_window_bytes(pyr0, cfg.scale, levels, ok, kp)
+          + klt_window_bytes(pyr1, cfg.scale, levels, ok, kp, torch.where(ok_k[:, None], kp_k, kp)))
+    nbytes = px + 2 * kp.numel() * 4 + ok.numel() + kp_k.numel() * 4 + ok_k.numel()
+    per_iter, _, per_template = klt_flop()
+    flop = gn * per_iter + n_valid * levels * per_template
+    b_ms, b_kind = bound(flop, nbytes)
+    ms = device_ms(lambda: klt_k.klt_pyramid_kernel(pyr0, pyr1, kp, kp, ok, cfg))
+    print(f"K1 frame over {levels} levels of {tuple(pyr0[0].shape)} (the coarsest {tuple(pyr0[-1].shape)}): the plain "
+          f"version's bits forward and backward on {kp.shape[0]} lanes ({n_valid} valid), success {int(ok_k.sum())}, "
+          f"GN lane-iterations {gn}; kernel {ms:.5f} ms/launch (device), bound {b_ms:.6f} ms ({b_kind}: "
+          f"{flop / 1e6:.3f} MFLOP, {nbytes / 1e6:.3f} MB) on {kind} ({smi})", flush=True)
+    return {"levels": levels, "shape": list(pyr0[0].shape), "ms": ms, "bound_ms": b_ms, "bound_by": b_kind,
+            "max_abs_err": float((kp_k - kp_e).abs().max()), "gn_lane_iterations": gn}
 
 
 class FrameList:
@@ -743,52 +872,22 @@ def main() -> None:
 
 
 def run_slices(dev, kind, smi, klt_k, pose_k, frames, lap_frames, kitti_root, scratch) -> None:
-    """Steps 3 to 11, then the result lines."""
+    """Steps 3 to 17, then the result lines."""
     ds = bench_world(N_FRAMES)
 
     # --- 3. kernels against plain versions ---------------------------------
 
     results = []
+    k1 = hold_klt_anchored(frames, dev, klt_k, 3, kind, smi)
     anchors, kp, pyr1, guess, valid, kcfg = klt_inputs(frames, dev)
-    it_k = torch.zeros((1,), dtype=torch.int32, device=dev)
-    it_e = torch.zeros((1,), dtype=torch.int32, device=dev)
-    kp_k, ok_k = klt_k.klt_pyramid_anchored_kernel(anchors, kp, pyr1, guess, valid, kcfg, gn_iterations=it_k)
-    kp_e, ok_e = klt_k.klt_pyramid_anchored_eager(anchors, kp, pyr1, guess, valid, kcfg, gn_iterations=it_e)
-    torch.cuda.synchronize()
-    agree = float((ok_k == ok_e).float().mean())
-    both = ok_k & ok_e
-    err = float((kp_k - kp_e)[both].abs().max()) if bool(both.any()) else float("nan")
-    gn_k, gn_e = int(it_k), int(it_e)
-    print(f"K1 klt: masks agree {agree:.4f} (bar {KLT_MASK_AGREE}), success kernel {int(ok_k.sum())} "
-          f"plain {int(ok_e.sum())}, max |dpos| {err:.2e} px over {int(both.sum())} lanes (bar {KLT_POS_ATOL})",
-          flush=True)
-    print(f"K1 klt: GN lane-iterations kernel {gn_k} plain {gn_e} (bar max{KLT_WORK_TOL})", flush=True)
-    check(agree >= KLT_MASK_AGREE, "K1 masks disagree with the plain version")
-    check(int(both.sum()) >= LANES // 4, "K1 tracked too few lanes")
-    check(err <= KLT_POS_ATOL, "K1 positions disagree with the plain version")
-    check(abs(gn_k - gn_e) <= max(KLT_WORK_TOL[0], KLT_WORK_TOL[1] * gn_e),
-          "K1 work count disagrees with the plain version")
-    levels = kcfg.levels
-    n_valid = int(valid.sum())
-    # the valid lanes' templates, and the pixels their windows touch between the guess and the result
-    tpl_bytes = n_valid * levels * anchors.shape[2] * anchors.shape[3] * 4
-    px_bytes = klt_window_bytes(pyr1, kcfg.scale, levels, valid, guess, torch.where(ok_k[:, None], kp_k, guess))
-    klt_bytes = (tpl_bytes + px_bytes
-                 + kp.numel() * 4 + guess.numel() * 4 + valid.numel()   # inputs
-                 + kp_k.numel() * 4 + ok_k.numel())                      # outputs
-    klt_flop = gn_k * KLT_FLOP_PER_ITER + n_valid * KLT_FLOP_ZNCC
-    k1_bound, k1_kind = bound(klt_flop, klt_bytes)
-    ms = device_ms(lambda: klt_k.klt_pyramid_anchored_kernel(anchors, kp, pyr1, guess, valid, kcfg))
     plain = wall_ms(lambda: klt_k.klt_pyramid_anchored_eager(anchors, kp, pyr1, guess, valid, kcfg), 20)
-    print(f"K1 klt: kernel {ms:.5f} ms/launch (device), plain {plain:.4f} ms/call (wall); bound {k1_bound:.6f} ms "
-          f"({k1_kind}: {klt_flop / 1e6:.3f} MFLOP, {klt_bytes / 1e6:.3f} MB, of which templates "
-          f"{tpl_bytes / 1e6:.3f} MB and the windows touch {px_bytes / 1e6:.3f} MB of the pyramid's "
-          f"{sum(p.numel() * 4 for p in pyr1[:levels]) / 1e6:.3f} MB)", flush=True)
+    print(f"K1 klt: plain {plain:.4f} ms/call (wall)", flush=True)
     results.append({"name": "klt_pyramid_anchored", "route": "cuda",
                     "source": "legoslam_tpu_torch/csrc/klt_anchored.cu",
                     "replaces": "legoslam_tpu/ops/klt_pallas.py:329,414",
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": k1_bound, "bound_by": k1_kind,
-                    "work": {"gn_lane_iterations": gn_k, "plain": gn_e}})
+                    "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "plain_ms": plain, "bound_ms": k1["bound_ms"],
+                    "bound_by": k1["bound_by"],
+                    "work": {"gn_lane_iterations": k1["gn_lane_iterations"], "plain": k1["gn_lane_iterations"]}})
 
     results.append(check_klt_frame(frames, dev, klt_k))
 
@@ -823,8 +922,13 @@ def run_slices(dev, kind, smi, klt_k, pose_k, frames, lap_frames, kitti_root, sc
                     "replaces": "legoslam_tpu/solver/pose_pallas.py:311",
                     "max_abs_err": terr, "ms": ms, "plain_ms": plain, "bound_ms": k2_bound, "bound_by": k2_kind,
                     "work": {"lm_attempts": sum(a_k), "plain": sum(a_e)}})
+    shared = pose_k.shared_edges(dev)
+    print(f"K2 pose: the shared copy holds {shared} edges on this card; above that K2 reads global memory",
+          flush=True)
+    pose_configs = []
     for label, n, large in ((f"{POSE_MAX_EDGES} edges", POSE_MAX_EDGES, False),
-                            (f"prior {POSE_LARGE_ANGLE} rad off", LANES, True)):
+                            (f"prior {POSE_LARGE_ANGLE} rad off", LANES, True),
+                            *((f"{n} edges", n, False) for n in POSE_WIDE_EDGES)):
         args = pose_inputs(dev, n, large)[:5]
         at_k = torch.zeros((outer,), dtype=torch.int32, device=dev)
         at_e = torch.zeros((outer,), dtype=torch.int32, device=dev)
@@ -833,13 +937,23 @@ def run_slices(dev, kind, smi, klt_k, pose_k, frames, lap_frames, kitti_root, sc
         torch.cuda.synchronize()
         terr_x = float((T_k - T_e).abs().max())
         ms_x = device_ms(lambda args=args: pose_k.estimate_pose_kernel(*args))
-        print(f"K2 pose, {label}: max |dT| {terr_x:.2e} (bar {POSE_T_ATOL}), inliers equal "
+        flop_x = (int(at_k.sum()) + outer) * int(args[4].sum()) * POSE_FLOP_PER_EDGE
+        bound_x, kind_x = bound(flop_x, T_prior.numel() * 4 + n * (12 + 8 + 1) + T_k.numel() * 4 + n + 4)
+        where = "global memory" if n > shared else "shared copy"
+        print(f"K2 pose, {label} ({where}): max |dT| {terr_x:.2e} (bar {POSE_T_ATOL}), inliers equal "
               f"{torch.equal(in_k, in_e)}, n_in kernel {int(n_k)} plain {int(n_e)}, LM attempts per round kernel "
-              f"{at_k.tolist()} plain {at_e.tolist()}; kernel {ms_x:.5f} ms/launch (device)", flush=True)
+              f"{at_k.tolist()} plain {at_e.tolist()}; kernel {ms_x:.5f} ms/launch (device), bound {bound_x:.6f} ms "
+              f"({kind_x}: {flop_x / 1e6:.3f} MFLOP) on {kind} ({smi})", flush=True)
         check(terr_x <= POSE_T_ATOL and torch.equal(in_k, in_e) and int(n_k) == int(n_e),
               f"K2 disagrees with the plain version at {label}")
         check(all(abs(x - y) <= POSE_ROUND_TOL for x, y in zip(at_k.tolist(), at_e.tolist())),
               f"K2 work count disagrees with the plain version at {label}")
+        pose_configs.append({"case": label, "edges": n, "memory": where, "ms": ms_x, "bound_ms": bound_x,
+                             "bound_by": kind_x, "max_abs_err": terr_x, "lm_attempts": int(at_k.sum())})
+    check(POSE_WIDE_EDGES[0] <= shared < POSE_WIDE_EDGES[1], f"K2's shared copy holds {shared} edges")
+    results[2]["work"]["configs"] = pose_configs
+    results[0]["work"]["configs"] = [hold_klt_anchored(frames, dev, klt_k, h, kind, smi) for h in KLT_WIDE_HALF_PATCHES]
+    results[1]["work"]["configs"] = [hold_klt_frame_levels(kitti_root, dev, klt_k, kind, smi)]
 
     # --- 4. the BA-off slice -------------------------------------------------
     from legoslam_tpu_torch.pipeline import backend
@@ -1286,13 +1400,20 @@ def run_slices(dev, kind, smi, klt_k, pose_k, frames, lap_frames, kitti_root, sc
     launches_more = run_chunk_async_graph_dist(dev, kind, smi, frames, ds, config, inline, ba_calls[-1][1],
                                                ba_runs["f32"][:2], reset_counts, read_counts)
     check_stage_fixture(kind, smi)
+    launches_wide = run_widened(dev, kind, smi, frames, ds, kitti_root, klt_k, pose_k, reset_counts, read_counts)
+    results[0]["work"]["instantiations"] = {f"half_patch {over['klt_half_patch']}": sl["klt_pyramid_anchored"]
+                                            for over, sl in zip(WIDE_BENCH.values(), launches_wide)}
+    results[1]["work"]["instantiations"] = {f"{WIDE_KITTI['klt_pyramid_levels']} levels":
+                                            launches_wide[-1]["klt_pyramid_frame"]}
+    results[2]["work"]["instantiations"] = {"edges in global memory": sum(sl["estimate_pose"]
+                                                                          for sl in launches_wide[:-1])}
 
     # library_ms: no single PyTorch call computes any of the three functions.
     slices = (launches_off, launches_inline, launches_inline2, launches_modes, launches_marg, arms[1.1]["launches"],
-              closed["launches"], launches_kitti, *launches_more)
+              closed["launches"], launches_kitti, *launches_more, *launches_wide)
     launches = {k: sum(sl[k] for sl in slices) for k in launches_off}
     check(all(n > 0 for n in launches.values()), f"a kernel was never launched on the main paths: {launches}")
-    n_frames_all = 8 * N_FRAMES + 2 * len(traj) + KITTI_FRAMES
+    n_frames_all = (8 + len(WIDE_BENCH)) * N_FRAMES + 2 * len(traj) + KITTI_FRAMES + WIDE_KITTI_FRAMES
     results[1]["max_abs_err"] = max(results[1]["max_abs_err"], err_loop)  # klt_pyramid_frame
     kernels = [{"name": r["name"], "route": r["route"], "source": r["source"], "replaces": r["replaces"],
                 "launches": launches[r["name"]], "launches_per_frame": launches[r["name"]] / n_frames_all,
@@ -1480,7 +1601,8 @@ def run_chunk_async_graph_dist(dev, kind, smi, frames, ds, config, inline, ba_ar
 
 
 # Step 16: the quantities the card must compute as the CPU does, bit for bit.
-STAGE_BIT_EQUAL = ("prior/T", "track/uv", "track/valid", "pose/T", "pose/lm", "pose/n_in")
+STAGE_BIT_EQUAL = ("prior/T", "track/uv", "track/valid", "pose/T", "pose/lm", "pose/n_in", "stereo/uv_r",
+                   "stereo/has_right")
 
 
 def check_stage_fixture(kind, smi) -> None:
@@ -1488,7 +1610,8 @@ def check_stage_fixture(kind, smi) -> None:
     carry (tests/data/kitti_soak_stages_f5.npz, through tests/kitti_stages.py,
     which needs no JAX), on the card and on the CPU: every stage and one
     whole step within tests/test_torch_kitti_stages.py's bars of every XLA
-    setting, and the prior, tracking and pose bit for bit the CPU's."""
+    setting, and the prior, tracking, pose and scanline stereo bit for bit
+    the CPU's."""
     import importlib.util
 
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -1522,7 +1645,100 @@ def check_stage_fixture(kind, smi) -> None:
     print(f"stages f5: past the bars of tests/test_torch_kitti_stages.py: {past}; card and CPU differ in "
           f"{differ} of {list(STAGE_BIT_EQUAL)}", flush=True)
     check(not past, "a stage of frame 5 is past its bar")
-    check(not differ, "the card's prior, tracking or pose differs from the CPU's")
+    check(not differ, "the card's prior, tracking, pose or stereo differs from the CPU's")
+
+
+def run_widened(dev, kind, smi, frames, ds, kitti_root, klt_k, pose_k, reset_counts, read_counts):
+    """17. The main path at the configurations the kernels widened to take:
+    WIDE_BENCH's runs over step 5's frames (BA inline at its defaults) and
+    WIDE_KITTI's over the KITTI sequence's first WIDE_KITTI_FRAMES frames
+    at 376x1240.  Each: every frame TRACKING_GOOD, the bench runs' ATE under
+    ATE_MAX, the kernels the run needs launched, and on the last frame each
+    launch's inputs kept and the plain version run on them, which must give
+    the kernel's bits.  Returns each run's launches."""
+    from legoslam_tpu_torch.pipeline.dataset import KittiDataset
+    from legoslam_tpu_torch.pipeline.visual_odometry import FrontendStatus, VisualOdometry
+    from legoslam_tpu_torch.utils import evaluation
+    from legoslam_tpu_torch.utils.config import Config
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    kitti_config = Config.from_yaml(os.path.join(repo, "config", "kitti_00.yaml")).override(**WIDE_KITTI)
+    bench = {"stereo_depth_inferior_limit": 2.0, "stereo_depth_superior_limit": 60.0}
+    runs = [(f"({k}) {over}", Config({**bench, **over}), lambda: FrameList(frames, ds.rig), N_FRAMES,
+             ds.gt_T_wc[:N_FRAMES]) for k, over in WIDE_BENCH.items()]
+    gt = KittiDataset(kitti_root, use_native=False)
+    check(gt.init(), "the KITTI sequence does not open")
+    runs.append((f"(c) {WIDE_KITTI}", kitti_config, lambda: KittiDataset(kitti_root, scale=WIDE_KITTI["image_scale"]),
+                 WIDE_KITTI_FRAMES, gt.ground_truth[:WIDE_KITTI_FRAMES]))
+    dispatch = {"klt_pyramid_anchored": (klt_k, "klt_pyramid_anchored", klt_k.klt_pyramid_anchored_eager),
+                "klt_pyramid_frame": (klt_k, "klt_pyramid", klt_k.klt_pyramid_eager),
+                "estimate_pose": (pose_k, "estimate_pose", pose_k.estimate_pose_eager)}
+    out = []
+    for label, config, dataset, n, gt_T_wc in runs:
+        vo = VisualOdometry(config=config, dataset=dataset())
+        check(vo.device.type == "cuda", f"VisualOdometry runs on {vo.device} {label}")
+        check(vo.init(), f"VisualOdometry.init failed {label}")
+        kept, keep = [], [False]
+
+        def keeping(name, fn):
+            def call(*args, **kw):
+                res = fn(*args, **kw)
+                if keep[0]:
+                    kept.append((name, tuple(clone(a) for a in args), kw, tuple(r.clone() for r in res)))
+                return res
+            return call
+
+        saved = {name: getattr(mod, attr) for name, (mod, attr, _) in dispatch.items()}
+        for name, (mod, attr, _) in dispatch.items():
+            setattr(mod, attr, keeping(name, saved[name]))
+        try:
+            reset_counts()
+            frame_ms = []
+            for i in range(n):
+                keep[0] = i == n - 1
+                t0 = time.perf_counter()
+                check(vo.step(), f"the frames ended early {label}")
+                torch.cuda.synchronize()
+                frame_ms.append(1e3 * (time.perf_counter() - t0))
+            launches = read_counts()
+        finally:
+            for name, (mod, attr, _) in dispatch.items():
+                setattr(mod, attr, saved[name])
+        statuses, kf = vo.statuses(), vo.keyframe_flags()
+        T_wc = vo.trajectory_T_wc()
+        ate = evaluation.ate_rmse(T_wc[:, :3, 3], gt_T_wc[:, :3, 3])
+        differ, held = [], []
+        for name, args, kw, res in kept:
+            plain = dispatch[name][2](*args, **kw)
+            same = all(same_bits(a, b) if a.dtype == torch.float32 else torch.equal(a, b) for a, b in zip(res, plain))
+            held.append(name)
+            if not same:
+                differ.append(name)
+        edges = [a[2].shape[0] for name, a, _, _ in kept if name == "estimate_pose"]
+        levels = [a[5].levels for name, a, _, _ in kept if name == "klt_pyramid_frame"]
+        patches = [a[5].half_patch for name, a, _, _ in kept if name in ("klt_pyramid_anchored", "klt_pyramid_frame")]
+        n_track, n_kf = n - 1, int(kf.sum())
+        track = [frame_ms[i] for i in range(WARMUP, n) if not kf[i]]
+        print(f"widened {label}: statuses {statuses.tolist()}", flush=True)
+        print(f"widened {label}: keyframes {n_kf}, launches {launches} (tracking frames {n_track}), ATE {ate:.5f} m; "
+              f"on frame {n - 1} the plain versions on each launch's own inputs ({held}; half-patches {patches}, "
+              f"levels {levels}, pose edges {edges}, the shared copy holds {pose_k.shared_edges(dev)}) differ in "
+              f"{differ}; {np.mean(frame_ms[WARMUP:]):.3f} ms/frame, tracking frames median {np.median(track):.3f} ms "
+              f"on {kind} ({smi})", flush=True)
+        check(bool((statuses == FrontendStatus.TRACKING_GOOD).all()), f"a frame did not track {label}")
+        check(bool(np.isfinite(T_wc).all()), f"non-finite trajectory {label}")
+        check(held and not differ, f"a kernel and its plain version differ {label}: {differ}")
+        check(launches["estimate_pose"] >= n_track, f"K2 was not launched on every tracking frame {label}")
+        if config["track_mode"] == "frame":
+            check(launches["klt_pyramid_frame"] >= n_track and levels and min(levels) == config["klt_pyramid_levels"],
+                  f"K1's frame entry did not run over {config['klt_pyramid_levels']} levels {label}")
+        else:
+            check(launches["klt_pyramid_anchored"] >= n_track and patches and set(patches) == {config["klt_half_patch"]},
+                  f"K1 did not run at half-patch {config['klt_half_patch']} {label}")
+            check(edges and min(edges) > pose_k.shared_edges(dev), f"K2 did not read its edges from global memory {label}")
+            check(ate < ATE_MAX, f"ATE {ate:.4f} m {label}")
+        out.append(launches)
+    return out
 
 
 def kitti_errors(T_wc, gt):

@@ -11,6 +11,11 @@
 // (ops/klt.py klt_level_anchored); the plain PyTorch twin is
 // legoslam_tpu_torch/kernels/klt.py klt_pyramid_anchored_eager.
 //
+// The patch is P x P, P = 2 h + 1, with its gradient halo (P + 2)^2: a
+// template parameter, instantiated for every half-patch h = 0..9 the
+// reference's Pallas kernels take (halo <= 21, klt_pallas.py:344-351);
+// below, sizes are those of the default h = 3 (a 7x7 patch, 9x9 halo).
+//
 // What bounds it on an H100: latency, not bytes or FLOPs.  A tracking frame
 // has 512 lanes; each lane runs at most 10 dependent Gauss-Newton iterations
 // per level over a 9x9 bilinear window (324 gathers, ~1.8k FLOPs), so the
@@ -46,7 +51,8 @@
 // no contracted multiply-adds (the source is built with -fmad=false), but
 // for the bilinear row pass on the levels whose bit is set in
 // `Pyramid::fused_rows`, rounded as one fused multiply-add; the ZNCC means
-// as a multiply by the float32 reciprocal of 49.
+// as a multiply by the float32 reciprocal of P^2 (49).  The ordered sums are
+// chains of P^2 - 1 dependent adds, so the launch's time grows with P^2.
 //
 // Frame mode (klt_pyramid_frame_kernel) is the other path into the same two
 // Pallas kernels: legoslam_tpu/ops/klt.py klt_pyramid (:179-226), which
@@ -65,14 +71,21 @@
 
 namespace {
 
-constexpr int kHalfPatch = 3;
-constexpr int kPatch = 2 * kHalfPatch + 1;  // 7
-constexpr int kHalo = kPatch + 2;           // 9
-constexpr int kWindow = kHalo * kHalo;      // 81 samples
-constexpr int kTerms = kPatch * kPatch;     // 49 residuals
+// The sizes of half-patch kH (h = 3: a 7x7 patch, 81 samples, 49 terms).
+template <int kH>
+struct Geo {
+  static constexpr int kPatch = 2 * kH + 1;
+  static constexpr int kHalo = kPatch + 2;
+  static constexpr int kWindow = kHalo * kHalo;  // samples of the halo window
+  static constexpr int kTerms = kPatch * kPatch;  // residuals
+  static constexpr int kTermsPerLane = (kTerms + 31) / 32;
+};
+constexpr int kMaxHalfPatch = 9;  // halo 21, the reference's largest
 constexpr int kWarpsPerBlock = 4;
 constexpr int kThreads = 32 * kWarpsPerBlock;
-constexpr int kMaxLevels = 8;
+// Levels with a row: 16 covers images up to 2^15 px high.  A Pyramid is a
+// __grid_constant__ parameter of 260 bytes.
+constexpr int kMaxLevels = 16;
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Pyramid {
@@ -112,7 +125,7 @@ __device__ __forceinline__ float sample(const float* __restrict__ img, int H, in
 // The warp's N sums of `terms` (N rows of kTerms in shared memory), each
 // added one term at a time in row-major order by lane q < N, then
 // broadcast to every lane.  The caller __syncwarp()s after writing terms.
-template <int N>
+template <int kTerms, int N>
 __device__ __forceinline__ void ordered_sums(const float (*terms)[kTerms], float (&out)[N]) {
   const int lane = threadIdx.x & 31;
   float acc = 0.0f;
@@ -148,14 +161,18 @@ __device__ __forceinline__ void select_level(const Pyramid& pyr, int level, cons
 // end.  kFrame = true: templates are sampled from `pyr1` at kp1, failed
 // lanes restart from kp1, no gate (`anchors`, `anchor_levels` and `min_zncc`
 // are unused).
-template <bool kFrame>
+template <int kH, bool kFrame>
 __device__ __forceinline__ void klt_pyramid_body(
     const float* __restrict__ anchors, int anchor_levels, const Pyramid& pyr1, const Pyramid& pyr,
     int levels, const float* __restrict__ anchor_uv, const float* __restrict__ guess,
     const uint8_t* __restrict__ valid, int n, int iterations, float eps2, float scale,
     float scale_top, int inverse, float min_zncc, float* __restrict__ kp_out,
     uint8_t* __restrict__ ok_out, int* __restrict__ gn_iterations) {
-  // Each warp reads and writes only its own rows: no block barrier.
+  constexpr int kPatch = Geo<kH>::kPatch, kHalo = Geo<kH>::kHalo, kWindow = Geo<kH>::kWindow;
+  constexpr int kTerms = Geo<kH>::kTerms, kPerLane = Geo<kH>::kTermsPerLane;
+  // Each warp reads and writes only its own rows: no block barrier.  At
+  // h = 9 the block's 4 x (2 x 441 + 6 x 361) floats are 48,768 bytes, inside
+  // the 48 KB of static shared memory.
   __shared__ float s_tpl[kWarpsPerBlock][kWindow];
   __shared__ float s_win[kWarpsPerBlock][kWindow];
   __shared__ float s_terms[kWarpsPerBlock][6][kTerms];
@@ -216,7 +233,7 @@ __device__ __forceinline__ void klt_pyramid_body(
         terms[2][t] = jy * jy;
       }
       __syncwarp();
-      ordered_sums(terms, Hfix);
+      ordered_sums<kTerms>(terms, Hfix);
       __syncwarp();  // terms is rewritten below
     }
 
@@ -227,7 +244,7 @@ __device__ __forceinline__ void klt_pyramid_body(
       ++iters;
       const float x0 = (k1x + dx) - half;
       const float y0 = (k1y + dy) - half;
-      // Unrolled so that a lane's 12 gathers are all in flight at once.
+      // Unrolled so that a lane's gathers (12 at h = 3) are all in flight at once.
 #pragma unroll
       for (int j = 0; j < (kWindow + 31) / 32; ++j) {
         const int q = lane + 32 * j;
@@ -262,7 +279,7 @@ __device__ __forceinline__ void klt_pyramid_body(
       }
       __syncwarp();  // terms are written; win is read no more this iteration
       float sum[6];
-      ordered_sums(terms, sum);
+      ordered_sums<kTerms>(terms, sum);
       __syncwarp();  // terms and win are rewritten by the next iteration
       const float cost = sum[0];
       const float h00 = inverse ? Hfix[0] : sum[1];
@@ -307,15 +324,16 @@ __device__ __forceinline__ void klt_pyramid_body(
   if (!kFrame && min_zncc > 0.0f) {
     // ZNCC of the level-0 template core against the patch at the result
     // (ops/klt.py zncc_gate); tpl still holds level 0.  Each lane keeps its
-    // (at most 2) terms in registers between the two passes.
+    // (at most kPerLane) terms in registers between the two passes.
     const float* img = pyr.level[0];
     const int H = pyr.height[0], W = pyr.width[0];
     const bool fused = pyr.fused_rows & 1;
     const float hp = (float)kPatch * 0.5f - 0.5f;
-    float t0[2] = {0.0f, 0.0f}, t1[2] = {0.0f, 0.0f};
+    float t0[kPerLane], t1[kPerLane];
     __syncwarp();  // the last GN iteration's reads of terms are done
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+    for (int j = 0; j < kPerLane; ++j) {
+      t0[j] = t1[j] = 0.0f;
       const int t = lane + 32 * j;
       if (t < kTerms) {
         const int r = t / kPatch, c = t - r * kPatch;
@@ -327,12 +345,12 @@ __device__ __forceinline__ void klt_pyramid_body(
     }
     __syncwarp();
     float m[2];  // sums of the template core and the patch
-    ordered_sums(terms, m);
+    ordered_sums<kTerms>(terms, m);
     __syncwarp();
-    const float inv_n = 1.0f / (float)kTerms;  // the mean as XLA takes it: times the reciprocal
+    const float inv_n = 1.0f / (float)kTerms;  // the mean as XLA takes it: times the reciprocal of P^2
     const float m0 = m[0] * inv_n, m1 = m[1] * inv_n;
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+    for (int j = 0; j < kPerLane; ++j) {
       const int t = lane + 32 * j;
       if (t < kTerms) {
         const float c0 = t0[j] - m0, c1 = t1[j] - m1;
@@ -343,7 +361,7 @@ __device__ __forceinline__ void klt_pyramid_body(
     }
     __syncwarp();
     float q[3];  // num, q0, q1
-    ordered_sums(terms, q);
+    ordered_sums<kTerms>(terms, q);
     const float den = sqrtf(q[1] * q[2] + 1e-6f);
     succ = succ && (q[0] / den > min_zncc);
   }
@@ -355,24 +373,26 @@ __device__ __forceinline__ void klt_pyramid_body(
   }
 }
 
+template <int kH>
 __global__ void __launch_bounds__(kThreads) klt_pyramid_anchored_kernel(
     const float* __restrict__ anchors, int anchor_levels, const __grid_constant__ Pyramid pyr,
     int levels, const float* __restrict__ anchor_uv, const float* __restrict__ guess,
     const uint8_t* __restrict__ valid, int n, int iterations, float eps2, float scale,
     float scale_top, int inverse, float min_zncc, float* __restrict__ kp_out,
     uint8_t* __restrict__ ok_out, int* __restrict__ gn_iterations) {
-  klt_pyramid_body<false>(anchors, anchor_levels, pyr, pyr, levels, anchor_uv, guess, valid, n,
+  klt_pyramid_body<kH, false>(anchors, anchor_levels, pyr, pyr, levels, anchor_uv, guess, valid, n,
                           iterations, eps2, scale, scale_top, inverse, min_zncc, kp_out, ok_out,
                           gn_iterations);
 }
 
+template <int kH>
 __global__ void __launch_bounds__(kThreads) klt_pyramid_frame_kernel(
     const __grid_constant__ Pyramid pyr1, const __grid_constant__ Pyramid pyr2, int levels,
     const float* __restrict__ kp1,
     const float* __restrict__ guess, const uint8_t* __restrict__ valid, int n, int iterations,
     float eps2, float scale, float scale_top, int inverse, float* __restrict__ kp_out,
     uint8_t* __restrict__ ok_out, int* __restrict__ gn_iterations) {
-  klt_pyramid_body<true>(nullptr, 0, pyr1, pyr2, levels, kp1, guess, valid, n, iterations, eps2,
+  klt_pyramid_body<kH, true>(nullptr, 0, pyr1, pyr2, levels, kp1, guess, valid, n, iterations, eps2,
                          scale, scale_top, inverse, 0.0f, kp_out, ok_out, gn_iterations);
 }
 
@@ -388,7 +408,18 @@ Pyramid make_pyramid(const float* const* level_ptr, const int* level_height,
   return pyr;
 }
 
+// Every level must have a row and a column (the reference cannot build one
+// without either).
+bool levels_ok(const int* height, const int* width, int levels) {
+  for (int l = 0; l < levels; ++l)
+    if (height[l] < 1 || width[l] < 1) return false;
+  return true;
+}
+
 }  // namespace
+
+// The instantiations: every half-patch 0..kMaxHalfPatch.
+#define LEGOSLAM_KLT_HALF_PATCHES(X) X(0) X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9)
 
 extern "C" int legoslam_klt_pyramid_anchored(
     const float* anchors, int anchor_levels, const float* const* level_ptr,
@@ -396,16 +427,24 @@ extern "C" int legoslam_klt_pyramid_anchored(
     const float* guess, const uint8_t* valid, int n, int half_patch, int iterations, float eps2,
     float scale, float scale_top, int inverse, float min_zncc, float* kp_out, uint8_t* ok_out,
     int* gn_iterations, void* stream) {
-  if (half_patch != kHalfPatch || levels < 1 || levels > kMaxLevels || levels > anchor_levels ||
-      n < 0) {
+  if (half_patch < 0 || half_patch > kMaxHalfPatch || levels < 1 || levels > kMaxLevels ||
+      levels > anchor_levels || n < 0 || !levels_ok(level_height, level_width, levels)) {
     return (int)cudaErrorInvalidValue;
   }
   if (n == 0) return 0;
   const Pyramid pyr = make_pyramid(level_ptr, level_height, level_width, levels, fused_rows);
   const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  klt_pyramid_anchored_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      anchors, anchor_levels, pyr, levels, anchor_uv, guess, valid, n, iterations, eps2, scale,
-      scale_top, inverse, min_zncc, kp_out, ok_out, gn_iterations);
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (half_patch) {
+#define LEGOSLAM_KLT_ANCHORED(h)                                                                     \
+  case h:                                                                                           \
+    klt_pyramid_anchored_kernel<h><<<blocks, kThreads, 0, st>>>(                                    \
+        anchors, anchor_levels, pyr, levels, anchor_uv, guess, valid, n, iterations, eps2, scale,   \
+        scale_top, inverse, min_zncc, kp_out, ok_out, gn_iterations);                               \
+    break;
+    LEGOSLAM_KLT_HALF_PATCHES(LEGOSLAM_KLT_ANCHORED)
+#undef LEGOSLAM_KLT_ANCHORED
+  }
   return (int)cudaGetLastError();
 }
 
@@ -419,16 +458,25 @@ extern "C" int legoslam_klt_pyramid_frame(
     const float* kp1, const float* guess, const uint8_t* valid, int n, int half_patch,
     int iterations, float eps2, float scale, float scale_top, int inverse, float* kp_out,
     uint8_t* ok_out, int* gn_iterations, void* stream) {
-  if (half_patch != kHalfPatch || levels < 1 || levels > kMaxLevels || n < 0) {
+  if (half_patch < 0 || half_patch > kMaxHalfPatch || levels < 1 || levels > kMaxLevels || n < 0 ||
+      !levels_ok(level1_height, level1_width, levels) || !levels_ok(level2_height, level2_width, levels)) {
     return (int)cudaErrorInvalidValue;
   }
   if (n == 0) return 0;
   const Pyramid pyr1 = make_pyramid(level1_ptr, level1_height, level1_width, levels, fused_rows1);
   const Pyramid pyr2 = make_pyramid(level2_ptr, level2_height, level2_width, levels, fused_rows2);
   const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  klt_pyramid_frame_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      pyr1, pyr2, levels, kp1, guess, valid, n, iterations, eps2, scale, scale_top, inverse,
-      kp_out, ok_out, gn_iterations);
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (half_patch) {
+#define LEGOSLAM_KLT_FRAME(h)                                                                         \
+  case h:                                                                                            \
+    klt_pyramid_frame_kernel<h><<<blocks, kThreads, 0, st>>>(pyr1, pyr2, levels, kp1, guess, valid, n, \
+                                                             iterations, eps2, scale, scale_top,        \
+                                                             inverse, kp_out, ok_out, gn_iterations);   \
+    break;
+    LEGOSLAM_KLT_HALF_PATCHES(LEGOSLAM_KLT_FRAME)
+#undef LEGOSLAM_KLT_FRAME
+  }
   return (int)cudaGetLastError();
 }
 

@@ -33,7 +33,14 @@
 //   the copy into shared memory (structure of arrays with a flag byte: bit 0
 //   valid, bit 1 outlier of the last round), the per-edge terms of every
 //   pass and the reclassification.  Only the owner reads or writes an
-//   edge's copy, so none of that needs a barrier.
+//   edge's copy, so none of that needs a barrier.  The copy holds as many
+//   edges as the opt-in shared memory leaves beside the ring (some 6,700 on
+//   an H100, `legoslam_pose_shared_edges`); above that a second
+//   instantiation (kGlobal) reads each edge from the caller's arrays in
+//   global memory in every pass (through the read-only cache; 16,384 edges
+//   are 344 KB, which stay in L2), and the flags lie in a global scratch of
+//   E bytes that the caller allocates.  Where an edge is stored changes no
+//   sum: every order is set by the edge's index.
 // - A pass writes each chunk's terms (rows of J^T W and J, the b terms, the
 //   chi term) into a ring of kSlots slots in shared memory, laid out as the
 //   chains read them: along k = 2e + j for b, along e for chi, and for each
@@ -117,8 +124,7 @@ namespace {
 constexpr int kCtrlWarp = 0, kBWarp = 1, kHWarp = 2, kChiWarp = 3, kFirstProducer = 4;
 constexpr int kProducers = 8;
 constexpr int kThreads = 32 * (kFirstProducer + kProducers);
-constexpr int kMaxEdges = 4096;   // shared copy: 5 floats and a flag byte each
-constexpr size_t kEdgeBytes = 5 * sizeof(float) + 1;
+constexpr size_t kEdgeBytes = 5 * sizeof(float) + 1;  // shared copy: 5 floats and a flag byte an edge
 // The ring of chunks.  A slot: b's six rows along k (64 terms, padded so
 // the six lanes' 16-byte loads fall in distinct banks), chi's row along e,
 // then for each H lane l and row a the row of J^T W along that lane's k
@@ -216,11 +222,28 @@ __device__ __forceinline__ void huber_rho12(float e2, bool robust, float d, floa
   r2 = -0.5f * (d / sqrte) / e2c;
 }
 
-// The launch's edges in shared memory (structure of arrays).
+// The launch's edges: the copy in shared memory (structure of arrays), or
+// under kGlobal the caller's p_world (E, 3) and uv (E, 2); the flags in
+// shared memory or in the global scratch.
 struct Edges {
   float *px, *py, *pz, *u, *v;
+  const float *pw, *uv;
   uint8_t* flag;
 };
+
+struct EdgeIn {
+  float px, py, pz, u, v;
+};
+
+template <bool kGlobal>
+__device__ __forceinline__ EdgeIn load_edge(const Edges& ed, int e) {
+  if constexpr (kGlobal) {
+    return EdgeIn{__ldg(ed.pw + 3 * e), __ldg(ed.pw + 3 * e + 1), __ldg(ed.pw + 3 * e + 2), __ldg(ed.uv + 2 * e),
+                  __ldg(ed.uv + 2 * e + 1)};
+  } else {
+    return EdgeIn{ed.px[e], ed.py[e], ed.pz[e], ed.u[e], ed.v[e]};
+  }
+}
 
 // A producer lane's edge in a pass (lm.pose_pass), in two halves so that
 // chi's chain starts before the Jacobians are done: produce_chi writes the
@@ -234,6 +257,7 @@ struct EdgePass {
   bool use;
 };
 
+template <bool kGlobal>
 __device__ __forceinline__ EdgePass produce_chi(const float (&T)[12], const Edges& ed, int e, int E,
                                                 uint8_t use_mask, const Intr& k, bool robust, float delta,
                                                 float* slot, int i) {
@@ -241,7 +265,8 @@ __device__ __forceinline__ EdgePass produce_chi(const float (&T)[12], const Edge
   p.use = e < E && (ed.flag[e] & use_mask) == kValid;
   float r0 = 0.0f;
   if (p.use) {
-    p.at = edge_residual(T, ed.px[e], ed.py[e], ed.pz[e], ed.u[e], ed.v[e], k);
+    const EdgeIn in = load_edge<kGlobal>(ed, e);
+    p.at = edge_residual(T, in.px, in.py, in.pz, in.u, in.v, k);
     p.e2 = p.at.ru * p.at.ru + p.at.rv * p.at.rv;
     r0 = huber_rho0(p.e2, robust, delta);
   }
@@ -728,18 +753,23 @@ __device__ __forceinline__ void skip_pass(Shared& s, int pass) {
   if (threadIdx.x == 0) *reinterpret_cast<volatile int*>(&s.skip) = pass;
 }
 
+template <bool kGlobal>
 __global__ void __launch_bounds__(kThreads, 1) estimate_pose_kernel(
     const float* __restrict__ T_init, const float* __restrict__ pw, const float* __restrict__ uv,
     const uint8_t* __restrict__ valid, int E, Intr k, LMParams prm, float* __restrict__ T_out,
-    uint8_t* __restrict__ inlier, int* __restrict__ n_inliers, int* __restrict__ attempts_out) {
+    uint8_t* __restrict__ inlier, int* __restrict__ n_inliers, int* __restrict__ attempts_out,
+    uint8_t* __restrict__ flag_scratch) {
   extern __shared__ float4 smem4[];  // 16-byte aligned: the ring's loads are float4
   float* smem = reinterpret_cast<float*>(smem4);
   __shared__ Shared s;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  Edges ed{smem, smem + E, smem + 2 * E, smem + 3 * E, smem + 4 * E,
-           reinterpret_cast<uint8_t*>(smem + 5 * E)};
-  // The ring after the edges (16-byte aligned).
-  float* ring = smem + ((E * kEdgeBytes + 15) / 16) * 4;
+  Edges ed{nullptr, nullptr, nullptr, nullptr, nullptr, pw, uv, flag_scratch};
+  float* ring = smem;
+  if constexpr (!kGlobal) {
+    ed = Edges{smem, smem + E, smem + 2 * E, smem + 3 * E, smem + 4 * E, pw, uv,
+               reinterpret_cast<uint8_t*>(smem + 5 * E)};
+    ring = smem + ((E * kEdgeBytes + 15) / 16) * 4;  // the ring after the edges (16-byte aligned)
+  }
   // Units a pass (E = 0: one unit of zeros); the chunks past E hold zeros.
   const int nu = E > 0 ? (E + kUnit * kChunk - 1) / (kUnit * kChunk) : 1;
   const int nch = nu * kUnit;
@@ -961,11 +991,13 @@ __global__ void __launch_bounds__(kThreads, 1) estimate_pose_kernel(
   for (int c = p; c < nch; c += kProducers) {
     const int e = kChunk * c + lane;
     if (e < E) {
-      ed.px[e] = pw[3 * e];
-      ed.py[e] = pw[3 * e + 1];
-      ed.pz[e] = pw[3 * e + 2];
-      ed.u[e] = uv[2 * e];
-      ed.v[e] = uv[2 * e + 1];
+      if constexpr (!kGlobal) {
+        ed.px[e] = pw[3 * e];
+        ed.py[e] = pw[3 * e + 1];
+        ed.pz[e] = pw[3 * e + 2];
+        ed.u[e] = uv[2 * e];
+        ed.v[e] = uv[2 * e + 1];
+      }
       ed.flag[e] = valid[e] ? kValid : 0;
     }
   }
@@ -982,7 +1014,7 @@ __global__ void __launch_bounds__(kThreads, 1) estimate_pose_kernel(
         if (lane == 0) CYCLES_ADD(1, t_empty);
         CYCLES_START(t_terms);
         float* slot = ring + (g % kSlots) * kSlotFloats;
-        const EdgePass ep = produce_chi(T, ed, kChunk * c + lane, E, use_mask, k, robust, prm.chi2_th, slot, lane);
+        const EdgePass ep = produce_chi<kGlobal>(T, ed, kChunk * c + lane, E, use_mask, k, robust, prm.chi2_th, slot, lane);
         __syncwarp();
         if (lane == 0) mbar_arrive(&s.chi_full[unit_slot(u)]);
         produce_rest(ep, k, robust, prm.chi2_th, slot, lane);
@@ -1014,7 +1046,8 @@ __global__ void __launch_bounds__(kThreads, 1) estimate_pose_kernel(
     for (int c = p; c < nch; c += kProducers) {
       const int e = kChunk * c + lane;
       if (e >= E) continue;
-      const EdgeAt a = edge_residual(T, ed.px[e], ed.py[e], ed.pz[e], ed.u[e], ed.v[e], k);
+      const EdgeIn in = load_edge<kGlobal>(ed, e);
+      const EdgeAt a = edge_residual(T, in.px, in.py, in.pz, in.u, in.v, k);
       const float e2 = a.ru * a.ru + a.rv * a.rv;
       const float r0 = huber_rho0(e2, robust, prm.chi2_th);
       const bool out = prm.verification ? !(e2 <= prm.chi2_th) : r0 > prm.chi2_th;
@@ -1045,7 +1078,45 @@ __global__ void __launch_bounds__(kThreads, 1) estimate_pose_kernel(
   __syncthreads();
 }
 
+// Per device: the edges the shared copy holds, what the opt-in shared
+// memory per block leaves beside the static block and the ring; both
+// instantiations are allowed their dynamic shared memory once.
+constexpr int kMaxDevices = 64;
+
+cudaError_t shared_edges(int* capacity) {
+  static int cap[kMaxDevices] = {};
+  static bool ready[kMaxDevices] = {};
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!ready[dev]) {
+    int optin;
+    cudaFuncAttributes fa;
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, estimate_pose_kernel<false>);
+    if (err != cudaSuccess) return err;
+    const long dynamic = (long)optin - (long)fa.sharedSizeBytes;
+    const long room = ((dynamic - (long)kRingBytes) / 16) * 16;  // the edges are padded to 16 bytes
+    if (room < 0) return cudaErrorInvalidConfiguration;
+    err = cudaFuncSetAttribute(estimate_pose_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)dynamic);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(estimate_pose_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)kRingBytes);
+    if (err != cudaSuccess) return err;
+    cap[dev] = (int)(room / (long)kEdgeBytes);
+    ready[dev] = true;
+  }
+  *capacity = cap[dev];
+  return cudaSuccess;
+}
+
 }  // namespace
+
+// The most edges a launch keeps in shared memory on the current device;
+// above it the caller passes a scratch of E bytes.
+extern "C" int legoslam_pose_shared_edges(int* capacity) { return (int)shared_edges(capacity); }
 
 extern "C" int legoslam_estimate_pose(const float* T_init, const float* p_world, const float* uv,
                                       const uint8_t* valid, int E, float fx, float fy, float cx,
@@ -1053,22 +1124,25 @@ extern "C" int legoslam_estimate_pose(const float* T_init, const float* p_world,
                                       int drop_kernel_after, int exclude_outliers, int verification, int strategy1,
                                       float tau, float max_diag_cap, float diff_chi_threshold,
                                       int false_cnt_threshold, float init_lambda, float* T_out,
-                                      uint8_t* inlier, int* n_inliers, int* attempts,
+                                      uint8_t* inlier, int* n_inliers, int* attempts, uint8_t* flag_scratch,
                                       void* stream) {
-  if (E < 0 || E > kMaxEdges || outer < 0 || iterations < 0) return (int)cudaErrorInvalidValue;
-  static bool smem_raised = false;  // above 48 KB only after opting in, once per process
-  if (!smem_raised) {
-    const cudaError_t err = cudaFuncSetAttribute(estimate_pose_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 (int)(kMaxEdges * kEdgeBytes + 16 + kRingBytes));
-    if (err != cudaSuccess) return (int)err;
-    smem_raised = true;
-  }
+  if (E < 0 || outer < 0 || iterations < 0) return (int)cudaErrorInvalidValue;
+  int capacity;
+  const cudaError_t err = shared_edges(&capacity);
+  if (err != cudaSuccess) return (int)err;
+  const bool global = E > capacity;
+  if (global && flag_scratch == nullptr) return (int)cudaErrorInvalidValue;
   const Intr k{fx, fy, cx, cy};
   LMParams prm{iterations, outer, drop_kernel_after, exclude_outliers, verification, strategy1,
                false_cnt_threshold, chi2_th, tau, max_diag_cap, diff_chi_threshold, init_lambda};
-  const size_t smem = ((E * kEdgeBytes + 15) / 16) * 16 + kRingBytes;
-  estimate_pose_kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>(
-      T_init, p_world, uv, valid, E, k, prm, T_out, inlier, n_inliers, attempts);
+  if (global) {
+    estimate_pose_kernel<true><<<1, kThreads, kRingBytes, (cudaStream_t)stream>>>(
+        T_init, p_world, uv, valid, E, k, prm, T_out, inlier, n_inliers, attempts, flag_scratch);
+  } else {
+    const size_t smem = ((E * kEdgeBytes + 15) / 16) * 16 + kRingBytes;
+    estimate_pose_kernel<false><<<1, kThreads, smem, (cudaStream_t)stream>>>(
+        T_init, p_world, uv, valid, E, k, prm, T_out, inlier, n_inliers, attempts, nullptr);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -21,9 +21,11 @@ from legoslam_tpu_torch.kernels import _build
 from legoslam_tpu_torch.ops import interp
 from legoslam_tpu_torch.ops import klt as klt_ops
 
-# csrc/klt_anchored.cu is compiled for this template size only.
-KERNEL_HALF_PATCH = 3
-_MAX_LEVELS = 8
+# csrc/klt_anchored.cu is instantiated for every half-patch the reference's
+# Pallas kernels take (halo = 2 h + 3 <= 21, legoslam_tpu/ops/klt_pallas.py)
+# and holds up to MAX_LEVELS levels (each with a row: images up to 2^15 px).
+MAX_HALF_PATCH = 9
+MAX_LEVELS = 16
 
 
 def klt_pyramid_anchored_eager(
@@ -93,6 +95,18 @@ def _level_arrays(pyr: Sequence[torch.Tensor], levels: int, dev, what: str):
             sum(int(interp.fused_rows(lvl.shape)) << k for k, lvl in enumerate(pyr[:levels])))
 
 
+def _check_config(cfg: klt_ops.KLTConfig, pyramids) -> None:
+    _require(0 <= cfg.half_patch <= MAX_HALF_PATCH,
+             f"half_patch {cfg.half_patch}: a halo of {2 * cfg.half_patch + 3} px; the reference's KLT kernels take "
+             f"patch <= {2 * MAX_HALF_PATCH + 1} (halo <= {2 * MAX_HALF_PATCH + 3})")
+    _require(1 <= cfg.levels <= MAX_LEVELS and all(len(p) >= cfg.levels for p in pyramids),
+             f"bad level count {cfg.levels} (1..{MAX_LEVELS}, no more than the pyramid holds)")
+    for p in pyramids:
+        for k, lvl in enumerate(p[:cfg.levels]):
+            _require(lvl.dim() == 2 and lvl.shape[0] > 0 and lvl.shape[1] > 0,
+                     f"level {k} is {tuple(lvl.shape)}: every level needs a row and a column")
+
+
 def _check_counter(gn_iterations: Optional[torch.Tensor], dev) -> None:
     if gn_iterations is not None:
         _require(gn_iterations.shape == (1,) and gn_iterations.dtype == torch.int32
@@ -117,8 +131,7 @@ def klt_pyramid_anchored_kernel(
     levels = cfg.levels
     dev = kp2_init.device
     _require(dev.type == "cuda", f"needs CUDA tensors, got {dev}")
-    _require(cfg.half_patch == KERNEL_HALF_PATCH, f"half_patch must be {KERNEL_HALF_PATCH}")
-    _require(1 <= levels <= _MAX_LEVELS and len(pyr2) >= levels, "bad level count")
+    _check_config(cfg, (pyr2,))
     halo = 2 * cfg.half_patch + 3
     _require(anchors.dim() == 4 and anchors.shape[0] == n and anchors.shape[1] >= levels
              and anchors.shape[2:] == (halo, halo), f"anchors must be (N, >={levels}, {halo}, {halo})")
@@ -213,8 +226,7 @@ def klt_pyramid_kernel(
     levels = cfg.levels
     dev = kp1.device
     _require(dev.type == "cuda", f"needs CUDA tensors, got {dev}")
-    _require(cfg.half_patch == KERNEL_HALF_PATCH, f"half_patch must be {KERNEL_HALF_PATCH}")
-    _require(1 <= levels <= _MAX_LEVELS and len(pyr1) >= levels and len(pyr2) >= levels, "bad level count")
+    _check_config(cfg, (pyr1, pyr2))
     _require(kp1.shape == (n, 2) and kp2_init.shape == (n, 2), "kp1 / kp2_init must be (N, 2)")
     _require(valid.shape == (n,) and valid.dtype == torch.bool, "valid must be (N,) bool")
     for name, t in (("kp1", kp1), ("kp2_init", kp2_init), ("valid", valid)):

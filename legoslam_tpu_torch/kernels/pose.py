@@ -12,7 +12,7 @@ which is filled with the LM attempts of each round (the work count).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -20,8 +20,7 @@ from legoslam_tpu_torch.kernels import _build
 from legoslam_tpu_torch.solver import lm, reprojection
 
 estimate_pose_eager = lm.estimate_pose
-# csrc/pose.cu keeps the launch's edges in shared memory: kMaxEdges.
-MAX_EDGES = 4096
+_shared_edges: Dict[Tuple[int, int], int] = {}
 
 
 def _lib():
@@ -30,8 +29,26 @@ def _lib():
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, i, f, f, f, f, f, i, i, i, i, i, i, f, f, f, i, f, p, p, p, p, p]
+        fn.argtypes = [p, p, p, p, i, f, f, f, f, f, i, i, i, i, i, i, f, f, f, i, f, p, p, p, p, p, p]
+        lib.legoslam_pose_shared_edges.restype = ctypes.c_int
+        lib.legoslam_pose_shared_edges.argtypes = [ctypes.POINTER(ctypes.c_int)]
     return lib
+
+
+def shared_edges(dev: torch.device) -> int:
+    """The most edges a launch on `dev` keeps in shared memory (what the
+    opt-in shared memory per block leaves beside csrc/pose.cu's ring);
+    above it the kernel reads its edges from global memory."""
+    index = torch.device(dev).index
+    index = torch.cuda.current_device() if index is None else index
+    lib = _lib()
+    key = (lib._handle, index)  # a build of another source may hold fewer
+    if key not in _shared_edges:
+        cap = ctypes.c_int()
+        with torch.cuda.device(index):
+            _build.check(lib, lib.legoslam_pose_shared_edges(ctypes.byref(cap)), "shared_edges")
+        _shared_edges[key] = cap.value
+    return _shared_edges[key]
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -55,7 +72,9 @@ def estimate_pose_kernel(
     verification: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One launch of csrc/pose.cu; same contract as `estimate_pose_eager`,
-    for at most MAX_EDGES edges."""
+    at any edge count: up to `shared_edges(dev)` edges the kernel copies
+    them into shared memory, above it it reads them from global memory,
+    with their flags in a scratch of E bytes allocated here."""
     dev = T_init.device
     E = p_world.shape[0]
     _require(dev.type == "cuda", f"needs CUDA tensors, got {dev}")
@@ -72,11 +91,10 @@ def estimate_pose_kernel(
         _require(attempts.shape == (outer_iterations,) and attempts.dtype == torch.int32
                  and attempts.device == dev and attempts.is_contiguous(),
                  f"attempts must be ({outer_iterations},) int32 on {dev}")
-    _require(E <= MAX_EDGES, f"at most {MAX_EDGES} edges, got {E}")
-
     T_out = torch.empty((4, 4), dtype=torch.float32, device=dev)
     inlier = torch.empty((E,), dtype=torch.bool, device=dev)
     n_in = torch.empty((), dtype=torch.int32, device=dev)
+    scratch = torch.empty((E,), dtype=torch.uint8, device=dev) if E > shared_edges(dev) else None
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _lib()
     rc = lib.legoslam_estimate_pose(
@@ -86,7 +104,7 @@ def estimate_pose_kernel(
         float(cfg.tau), float(cfg.max_diag_cap), float(cfg.diff_chi_threshold),
         cfg.false_cnt_threshold, float(cfg.init_lambda),
         T_out.data_ptr(), inlier.data_ptr(), n_in.data_ptr(),
-        None if attempts is None else attempts.data_ptr(), stream,
+        None if attempts is None else attempts.data_ptr(), None if scratch is None else scratch.data_ptr(), stream,
     )
     _build.check(lib, rc, "estimate_pose_kernel")
     estimate_pose_kernel.launches += 1

@@ -95,6 +95,35 @@ def row_sum(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def rows_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum of (..., P, C) over its P rows, in the order an x86 CPU's
+    `torch.sum(x, dim=-2)` takes for float32 (ATen's `cascade_sum` with
+    8-float vectors), written as elementwise ops so a card gives the same
+    bits.  Columns in whole blocks of 32 (of 4 when C < 8) add their rows
+    one at a time from zero, the first 16 and the rest apart when P >= 16;
+    the other columns keep four partial sums, row r in sum r mod 4 (the rows
+    past the last whole four in the first), and add them in order.  (ATen
+    takes yet another order when C == 1.)"""
+    P, C = x.shape[-2:]
+    zero = torch.zeros_like(x[..., 0, :])
+
+    def run(rows):
+        acc = zero
+        for r in rows:
+            acc = acc + x[..., r, :]
+        return acc
+
+    seq = run(range(P)) if P < 16 else run(range(16, P)) + (zero + run(range(16)))
+    n4 = P // 4
+    part = [run(range(k, 4 * n4, 4)) for k in range(4)]
+    for r in range(4 * n4, P):
+        part[0] = part[0] + x[..., r, :]
+    fours = ((part[0] + part[1]) + part[2]) + part[3]
+    whole = (C // 32) * 32 if C >= 8 else (C // 4) * 4
+    col = torch.arange(C, device=x.device)
+    return zero + torch.where(col < whole, seq, fours)
+
+
 def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """a * b + c of float32 tensors rounded once, as a fused multiply-add
     (XLA's CPU code, CUDA's `__fmaf_rn`), on any device."""

@@ -17,7 +17,7 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 
 from legoslam_tpu_torch.ops import interp, prefix, rounding
-from legoslam_tpu_torch.ops.rounding import div_const, patch_mean, patch_sum
+from legoslam_tpu_torch.ops.rounding import div_const, patch_mean, patch_sum, rows_sum
 
 
 class ScanlineConfig(NamedTuple):
@@ -66,12 +66,15 @@ def match(
 
     pl0 = patch_l - patch_mean(patch_l)[..., None, None]
     norm_l = rounding.sqrt(patch_sum(pl0 * pl0))
+    # Every sum over a patch's rows runs in one fixed order (`rows_sum`: a
+    # CPU's torch.sum order, as elementwise ops), so a card and a CPU give
+    # the same bits.
     cross = 0
     for k in range(P):
-        cross = cross + torch.sum(pl0[:, :, k : k + 1] * strip[:, :, 1 + k : 1 + k + D], dim=1)
+        cross = cross + rows_sum(pl0[:, :, k : k + 1] * strip[:, :, 1 + k : 1 + k + D])
     zero = torch.zeros((n, 1), dtype=strip.dtype, device=strip.device)
-    cum = torch.cat([zero, prefix.cumsum(strip.sum(dim=1), dim=1)], dim=1)
-    cumq = torch.cat([zero, prefix.cumsum((strip * strip).sum(dim=1), dim=1)], dim=1)
+    cum = torch.cat([zero, prefix.cumsum(rows_sum(strip), dim=1)], dim=1)
+    cumq = torch.cat([zero, prefix.cumsum(rows_sum(strip * strip), dim=1)], dim=1)
     win_sum = cum[:, 1 + P : 1 + P + D] - cum[:, 1 : 1 + D]
     win_sq = cumq[:, 1 + P : 1 + P + D] - cumq[:, 1 : 1 + D]
     var_r = torch.clamp(win_sq - div_const(win_sum * win_sum, P * P), min=0.0)

@@ -5,7 +5,7 @@
                                                         | --kitti-handover SEQ START END
                                                         | --kitti-stages SEQ START END [--save OUT] [--handover FILE]
                                                           [--card FILE] [--fixture-frame H]
-                                                        | --probe-rounding [--save OUT]]
+                                                        | --probe-rounding [--save OUT] | --widened [SEQ]]
 
 Not a test (pytest does not collect it); it runs what the parity tests
 check and prints the values beside their bars:
@@ -70,7 +70,15 @@ check and prints the values beside their bars:
 9. with --probe-rounding: how the reference rounds the pose's small
    products, constant divisions, square roots and 6x6 solve under the three
    settings, against the port (tests/rounding_probe.py); --save OUT writes
-   tests/test_torch_rounding_frontend.py's fixture.
+   tests/test_torch_rounding_frontend.py's fixture;
+10. with --widened [SEQ]: chip_smoke.py step 17's three runs, by the JAX
+   reference and by the port, on the CPU: (a) and (b) the 40-frame bench
+   world with BA inline at its defaults and `klt_half_patch` 5 and 9 with
+   `max_features` 8192, (c) the first 30 frames of the KITTI soak at
+   376x1240 (SEQ, or rendered into a temporary directory as chip_smoke.py
+   writes it) with config/kitti_00.yaml, `image_scale` 1.0, `track_mode:
+   frame` and `klt_pyramid_levels` 9; prints each run's statuses,
+   keyframes and ATE, and the port's distance from the reference.
 """
 
 from __future__ import annotations
@@ -180,6 +188,59 @@ def bench_world() -> None:
               f"{bool((port.keyframe_flags() == kf).all())} ({int(port.keyframe_flags().sum())}), ATE "
               f"{evaluation.ate_rmse(P[:, :3, 3], tds.gt_T_wc[:n, :3, 3]):.6f} m; port against reference, rigidly "
               f"aligned: {evaluation.ate_rmse(P[:, :3, 3], T[:, :3, 3]):.6f} m")
+
+
+def widened(seq: str = None) -> None:
+    import multiprocessing
+    import shutil
+    from concurrent.futures import ProcessPoolExecutor
+
+    import chip_smoke
+    from legoslam_tpu.pipeline.dataset import KittiDataset as JKitti
+    from legoslam_tpu.pipeline.dataset import SyntheticPlanesDataset as JDataset
+    from legoslam_tpu.pipeline.visual_odometry import VisualOdometry as JVisualOdometry
+    from legoslam_tpu.utils.config import Config as JConfig
+    from legoslam_tpu_torch.pipeline.dataset import KittiDataset as TKitti
+    from legoslam_tpu_torch.pipeline.dataset import SyntheticPlanesDataset as TDataset
+
+    tmp = None
+    if seq is None:
+        tmp = tempfile.mkdtemp(prefix="legoslam_widened_")
+        seq = os.path.join(tmp, "07")
+        with ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn")) as pool:
+            chip_smoke.start_soak_sequence(pool, 2, seq, chip_smoke.WIDE_KITTI_FRAMES)()
+    try:
+        bench = dict(n_frames=chip_smoke.N_FRAMES, shape=chip_smoke.SHAPE, focal=360.0, baseline=0.54, speed=0.12,
+                     half_width=10.0, length=200.0)
+        base = {"stereo_depth_inferior_limit": 2.0, "stereo_depth_superior_limit": 60.0}
+        yaml = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "config", "kitti_00.yaml")
+        runs = [(f"({k}) bench world, {over}", lambda over=over: JConfig({**base, **over}),
+                 lambda over=over: Config({**base, **over}), lambda: JDataset(**bench), lambda: TDataset(**bench),
+                 chip_smoke.N_FRAMES) for k, over in chip_smoke.WIDE_BENCH.items()]
+        runs.append((f"(c) KITTI soak at 376x1240, {chip_smoke.WIDE_KITTI}",
+                     lambda: JConfig.from_yaml(yaml).override(**chip_smoke.WIDE_KITTI),
+                     lambda: Config.from_yaml(yaml).override(**chip_smoke.WIDE_KITTI),
+                     lambda: JKitti(seq, scale=1.0), lambda: TKitti(seq, scale=1.0), chip_smoke.WIDE_KITTI_FRAMES))
+        for name, jcfg, tcfg, jds, tds, n in runs:
+            out = {}
+            for who, vo in (("JAX reference", JVisualOdometry(config=jcfg(), dataset=jds())),
+                            ("port", VisualOdometry(config=tcfg(), dataset=tds(), device="cpu"))):
+                assert vo.init()
+                for _ in range(n):
+                    assert vo.step()
+                T = vo.trajectory_T_wc()
+                gt = vo.dataset.ground_truth[:n]
+                kf = np.asarray(vo.keyframe_flags() if who == "port" else [bool(o.kf_inserted) for o in vo.outputs])
+                out[who] = (vo.statuses(), kf, T)
+                print(f"widened {name}, {who} on the CPU: statuses {vo.statuses().tolist()}, keyframes "
+                      f"{int(kf.sum())}, ATE {evaluation.ate_rmse(T[:, :3, 3], gt[:, :3, 3]):.6f} m", flush=True)
+            (s_j, k_j, T_j), (s_t, k_t, T_t) = out["JAX reference"], out["port"]
+            print(f"widened {name}: statuses equal {bool((s_j == s_t).all())}, keyframe flags equal "
+                  f"{bool((k_j == k_t).all())}, port against reference, rigidly aligned: "
+                  f"{evaluation.ate_rmse(T_t[:, :3, 3], T_j[:, :3, 3]):.6f} m", flush=True)
+    finally:
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
 
 
 def loop_records(path: str, save_pair: str = None) -> None:
@@ -738,6 +799,7 @@ def main() -> None:
                     help="with --kitti-stages --save: the handover the fixture holds")
     ap.add_argument("--probe-rounding", action="store_true",
                     help="how the reference rounds the pose's small products under XLA's CPU settings")
+    ap.add_argument("--widened", nargs="?", const="", default=None, metavar="SEQ")
     ap.add_argument("--kitti-stages-ref", nargs=5, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--feed", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--isa-runs", default=None, metavar="OUT", help=argparse.SUPPRESS)
@@ -747,6 +809,9 @@ def main() -> None:
         from tests import rounding_probe
 
         rounding_probe.probe_rounding(args.save)
+        return
+    if args.widened is not None:
+        widened(args.widened or None)
         return
     if args.kitti_stages_ref:
         seq, start, end, steps, out = args.kitti_stages_ref

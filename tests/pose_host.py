@@ -29,31 +29,32 @@ import numpy as np
 
 SOURCE = Path(__file__).resolve().parent.parent / "legoslam_tpu_torch" / "csrc" / "pose.cu"
 FUNCTIONS = ("clamp_min", "clamp_max", "edge_residual", "edge_jacobian", "huber_linear", "huber_rho0", "huber_rho12",
-             "produce_chi", "produce_rest",
+             "load_edge", "produce_chi", "produce_rest",
              "load_group",
              "add_group", "unit_group", "load_h", "add_h", "combine_lanes", "lu_factor", "lu_solve", "damped_solve",
              "retract")
 
 HARNESS = r"""
 extern "C" void host_pass(const float* T, const float* pw, const float* uv, const unsigned char* use, int E,
-                          float fx, float fy, float cx, float cy, int robust, float delta, float* out) {
+                          float fx, float fy, float cx, float cy, int robust, float delta, int global, float* out) {
   const Intr k{fx, fy, cx, cy};
   float Tr[12];
   for (int q = 0; q < 12; ++q) Tr[q] = T[q];
-  static float px[kMaxEdges], py[kMaxEdges], pz[kMaxEdges], u[kMaxEdges], v[kMaxEdges];
-  static uint8_t flag[kMaxEdges];
+  std::vector<float> px(E), py(E), pz(E), u(E), v(E);
+  std::vector<uint8_t> flag(E);
   for (int e = 0; e < E; ++e) {
     px[e] = pw[3 * e], py[e] = pw[3 * e + 1], pz[e] = pw[3 * e + 2], u[e] = uv[2 * e], v[e] = uv[2 * e + 1];
     flag[e] = use[e] ? kValid : 0;
   }
-  const Edges ed{px, py, pz, u, v, flag};
+  const Edges ed{px.data(), py.data(), pz.data(), u.data(), v.data(), pw, uv, flag.data()};
+  const auto produce = global ? produce_chi<true> : produce_chi<false>;
   alignas(16) static float unit[kUnit * kSlotFloats];
   const int nu = E > 0 ? (E + kUnit * kChunk - 1) / (kUnit * kChunk) : 1;
   float b[6] = {0.0f}, chi = 0.0f, h[24][6] = {{0.0f}};
   for (int u = 0; u < nu; ++u) {  // a unit's producer lanes, then each chain over it, in the chain warps' groups
     for (int c = 0; c < kUnit; ++c)
       for (int i = 0; i < kChunk; ++i)
-        produce_rest(produce_chi(Tr, ed, kChunk * (kUnit * u + c) + i, E, kValid, k, robust != 0, delta,
+        produce_rest(produce(Tr, ed, kChunk * (kUnit * u + c) + i, E, kValid, k, robust != 0, delta,
                                  unit + c * kSlotFloats, i),
                      k, robust != 0, delta, unit + c * kSlotFloats, i);
     for (int j = 0; j < 2 * kUnit; ++j)
@@ -105,6 +106,7 @@ PRELUDE = r"""
 #include <math.h>
 #include <stdint.h>
 #include <string.h>
+#include <vector>
 #define __device__
 #define __host__
 #define __forceinline__ inline
@@ -112,6 +114,7 @@ PRELUDE = r"""
 struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
 inline float2 make_float2(float x, float y) { return float2{x, y}; }
+template <typename T> inline T __ldg(const T* p) { return *p; }
 """
 
 def _function(src: str, name: str) -> str:
@@ -130,11 +133,11 @@ def _function(src: str, name: str) -> str:
 
 
 def _constants(src: str) -> str:
-    """The source's constants and Intr, and its Edges, EdgeAt, EdgePass and
-    HGroup structs."""
+    """The source's constants and Intr, and its Edges, EdgeIn, EdgeAt,
+    EdgePass and HGroup structs."""
     start = src.index("constexpr int kCtrlWarp")
     structs = [src[i:src.index("};", i) + 2]
-               for i in (src.index(f"struct {name} {{") for name in ("Edges", "EdgeAt", "EdgePass", "HGroup"))]
+               for i in (src.index(f"struct {name} {{") for name in ("Edges", "EdgeIn", "EdgeAt", "EdgePass", "HGroup"))]
     return src[start:src.index("struct LMParams")] + "\n".join(structs) + "\n"
 
 
@@ -158,7 +161,7 @@ def build(out_dir: str = None) -> ctypes.CDLL:
             raise RuntimeError(f"g++ failed on pose.cu's functions:\n{proc.stderr}")
     lib = ctypes.CDLL(str(out))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.host_pass.argtypes = [p, p, p, p, i, f, f, f, f, i, f, p]
+    lib.host_pass.argtypes = [p, p, p, p, i, f, f, f, f, i, f, i, p]
     lib.host_fma.argtypes = [p, p, p, i, p]
     lib.host_solve.argtypes = [p, p, f, i, p]
     lib.host_retract.argtypes = [p, p, p]
@@ -174,15 +177,16 @@ def _t12(T) -> np.ndarray:
     return np.ascontiguousarray(np.concatenate([T[:3, :3].ravel(), T[:3, 3]]), np.float32)
 
 
-def host_pass(lib, T, p_world, uv, use, intr, robust: bool, delta: float) -> np.ndarray:
+def host_pass(lib, T, p_world, uv, use, intr, robust: bool, delta: float, global_edges: bool = False) -> np.ndarray:
     """The kernel's 43 sums of one pass: H (36, row-major), b (6), chi before
-    the 0.5."""
+    the 0.5; `global_edges`: its producers read the edges as the kGlobal
+    instantiation does, from the caller's arrays."""
     out = np.zeros(44, np.float32)
     pw = np.ascontiguousarray(p_world, np.float32)
     uvc = np.ascontiguousarray(uv, np.float32)
     use8 = np.ascontiguousarray(use, np.uint8)
     lib.host_pass(_ptr(_t12(T)), _ptr(pw), _ptr(uvc), _ptr(use8), len(pw), intr.fx, intr.fy, intr.cx, intr.cy,
-                  int(robust), float(np.float32(delta)), _ptr(out))
+                  int(robust), float(np.float32(delta)), int(global_edges), _ptr(out))
     return out[:43]
 
 

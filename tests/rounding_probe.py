@@ -19,7 +19,12 @@ port's largest gap to each setting; for the solve, an explicit LU
 (`lm.lu_solve`) and a Cholesky beside LAPACK's; and how often
 `torch.sqrt` on this CPU misses the correctly rounded root.  --save writes
 the inputs and every setting's outputs (tests/data/rounding_probe.npz,
-held by tests/test_torch_rounding_frontend.py).
+held by tests/test_torch_rounding_frontend.py).  Then the bilinear sampler
+(`probe_sampler`): the reference's one-hot matmul rounds its row pass as
+a fused multiply-add on some image shapes, which the port lists by shape
+(`ops/interp.py` FUSED_ROW_SHAPES); printed per level of the 188x620 and
+376x1240 pyramids and half-patch, which row pass (unfused, fused, neither)
+gives each setting's bits, and whether the port's does.
 """
 
 from __future__ import annotations
@@ -36,6 +41,11 @@ POSE_PROBLEMS = 8
 SETTINGS = ("unset", "AVX2", "SSE4_2")
 ISA = {"unset": "", "AVX2": "AVX2", "SSE4_2": "SSE4_2"}
 CONSTANTS = (6.0, 24.0, 120.0, 720.0, 5040.0)
+# The sampler's probe: every level with a row of these pyramids, at these
+# half-patches (the halo window is 2 h + 3 px), SAMPLER_LANES windows each.
+SAMPLER_PYRAMIDS = (((188, 620), 8), ((376, 1240), 9))
+SAMPLER_HALF_PATCHES = (0, 1, 3, 5, 9)
+SAMPLER_LANES = 256
 
 
 def inputs(seed: int = 0) -> dict:
@@ -237,19 +247,87 @@ def relative_gap(x, ref) -> float:
     return float((np.abs(x - ref).max(-1) / np.abs(ref).max(-1)).max())
 
 
-def run_settings(x: dict) -> dict:
-    """The reference's outputs under each setting, each in a process of
-    its own."""
+def run_settings(x: dict, what: str = "pose") -> dict:
+    """The reference's outputs (`reference`, or with what="sampler"
+    `sampler_reference`) under each setting, each in a process of its own."""
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         np.savez(os.path.join(tmp, "in.npz"), **x)
         for name in SETTINGS:
             path = os.path.join(tmp, f"{name}.npz")
             flags = os.environ.get("XLA_FLAGS", "") + (f" --xla_cpu_max_isa={ISA[name]}" if ISA[name] else "")
-            subprocess.run([sys.executable, "-m", "tests.rounding_probe", os.path.join(tmp, "in.npz"), path],
+            subprocess.run([sys.executable, "-m", "tests.rounding_probe", os.path.join(tmp, "in.npz"), path, what],
                            check=True, env={**os.environ, "XLA_FLAGS": flags.strip(), "JAX_PLATFORMS": "cpu"})
             out[name] = dict(np.load(path))
     return out
+
+
+def sampler_inputs(seed: int = 3) -> dict:
+    """The levels of SAMPLER_PYRAMIDS (the port's pyramids of random
+    images) and SAMPLER_LANES window centres on each, some off the image."""
+    import torch
+
+    from legoslam_tpu_torch.ops import pyramid
+
+    rng = np.random.default_rng(seed)
+    x = {}
+    for shape, levels in SAMPLER_PYRAMIDS:
+        img = torch.from_numpy(rng.uniform(0, 255, shape).astype(np.float32))
+        for lvl in pyramid.build_pyramid(img, levels):
+            H, W = lvl.shape
+            if H == 0 or W == 0:
+                continue
+            x[f"img {H}x{W}"] = lvl.numpy()
+            x[f"centres {H}x{W}"] = np.stack([rng.uniform(-3, W + 3, SAMPLER_LANES),
+                                               rng.uniform(-3, H + 3, SAMPLER_LANES)], -1).astype(np.float32)
+    return x
+
+
+def sampler_reference(x: dict) -> dict:
+    """The reference's `sample_patches_matmul` on every level and
+    half-patch, under this process's XLA_FLAGS."""
+    import jax.numpy as jnp
+
+    from legoslam_tpu.ops import interp
+
+    out = {}
+    for key in x:
+        if key.startswith("img "):
+            shape = key[4:]
+            for h in SAMPLER_HALF_PATCHES:
+                out[f"{shape} h{h}"] = np.asarray(interp.sample_patches_matmul(
+                    jnp.asarray(x[key]), jnp.asarray(x[f"centres {shape}"]), 2 * h + 3))
+    return out
+
+
+def probe_sampler() -> None:
+    import torch
+
+    from legoslam_tpu_torch.ops import interp
+
+    x = sampler_inputs()
+    refs = run_settings(x, "sampler")
+    rule = interp.FUSED_ROW_SHAPES
+    print(f"sampler probe: halo windows of {SAMPLER_LANES} lanes on each level, the reference under XLA's CPU "
+          f"settings against the port's row pass unfused and fused (the port fuses on {sorted(rule)})")
+    try:
+        for q in refs[SETTINGS[0]]:
+            shape, h = q.split(" h")
+            H, W = map(int, shape.split("x"))
+            img, centres = (torch.from_numpy(x[f"{k} {shape}"]) for k in ("img", "centres"))
+            rows = {}
+            for fused in (False, True):
+                interp.FUSED_ROW_SHAPES = frozenset({(H, W)}) if fused else frozenset()
+                rows["fused" if fused else "unfused"] = interp.sample_patches(img, centres, 2 * int(h) + 3).numpy()
+            interp.FUSED_ROW_SHAPES = rule
+            mine = rows["fused" if (H, W) in rule else "unfused"]
+            which = {s: [k for k, v in rows.items() if np.array_equal(v, refs[s][q])] or ["neither"] for s in SETTINGS}
+            agree = all(np.array_equal(refs[SETTINGS[0]][q], refs[s][q]) for s in SETTINGS[1:])
+            print(f"  {shape:>9} h={h}: settings agree {agree}; " + ", ".join(f"{s} {'/'.join(w)}" for s, w in which.items())
+                  + "; the port's bits are " + (", ".join(s for s in SETTINGS if np.array_equal(mine, refs[s][q]))
+                                                or "none of them"))
+    finally:
+        interp.FUSED_ROW_SHAPES = rule
 
 
 def probe_rounding(save: str = None) -> None:
@@ -304,8 +382,9 @@ def probe_rounding(save: str = None) -> None:
         np.savez_compressed(save, **{f"in/{k}": v for k, v in x.items()},
                             **{f"{s}/{q}": v for s in SETTINGS for q, v in refs[s].items()})
         print(f"rounding probe: wrote {save} ({os.path.getsize(save)} bytes)")
+    probe_sampler()
 
 
 if __name__ == "__main__":
-    src, dst = sys.argv[1:3]
-    np.savez(dst, **reference(dict(np.load(src))))
+    src, dst, what = sys.argv[1:4]
+    np.savez(dst, **(sampler_reference if what == "sampler" else reference)(dict(np.load(src))))

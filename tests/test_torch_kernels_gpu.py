@@ -12,6 +12,9 @@ round's LM attempts equal.
 
 The frame-mode entry of the KLT kernel is held to the same bars, forward
 and backward, and its restart rule on lanes that fail the coarsest level.
+Both KLT entries give their plain versions' bits at every half-patch they
+are instantiated for (0..9) and over 9 levels of 376x1240; the pose kernel
+at edge counts on both sides of its shared copy's capacity.
 
 Window BA has no kernel of its own (PyTorch ops); its card run is held
 against the same call on a CPU copy of the map with chip_smoke.py's bars,
@@ -52,13 +55,13 @@ def _smooth_image(rng, H, W):
     return img * 255.0
 
 
-def _klt_case(dev, levels, inverse, n=512, H=188, W=620, seed=0):
+def _klt_case(dev, levels, inverse, n=512, H=188, W=620, seed=0, half_patch=3):
     rng = np.random.default_rng(seed)
     img1 = _smooth_image(rng, H, W)
     img2 = torch.roll(img1, (1, 2), (0, 1))
     kp = torch.from_numpy(np.stack([rng.uniform(12, W - 12, n), rng.uniform(12, H - 12, n)], -1).astype(np.float32))
     valid = torch.from_numpy(rng.uniform(size=n) > 0.1)
-    cfg = klt.KLTConfig(levels=levels, inverse=inverse)
+    cfg = klt.KLTConfig(levels=levels, inverse=inverse, half_patch=half_patch)
     anchors = klt.extract_anchors(pyramid.build_pyramid(img1, levels + 1), kp, cfg._replace(levels=levels + 1))
     guess = kp + torch.from_numpy(rng.uniform(-2.0, 2.0, (n, 2)).astype(np.float32))
     pyr2 = tuple(p.to(dev) for p in pyramid.build_pyramid(img2, levels + 1))
@@ -101,12 +104,87 @@ def test_klt_auto_dispatch_launches_kernel(cuda):
     assert klt_k.klt_pyramid_anchored_kernel.launches == n0 + 1
 
 
+def _bits(x):
+    """A float tensor's bits (NaN equal to itself)."""
+    return x.contiguous().view(torch.int32)
+
+
+def _same_bits(a, b):
+    return torch.equal(_bits(a[0]), _bits(b[0])) and torch.equal(a[1], b[1])
+
+
+# Every half-patch the kernels are instantiated for (the reference's Pallas
+# kernels take halo = 2 h + 3 <= 21).
+HALF_PATCHES = [0, 1, 2, 3, 4, 5, 6, 7, 8, 9]
+
+
+@pytest.mark.parametrize("half_patch", HALF_PATCHES)
+@pytest.mark.parametrize("inverse", [False, True])
+def test_klt_kernel_bit_for_bit_at_half_patch(cuda, half_patch, inverse):
+    """K1 anchored at each half-patch gives its plain version's bits:
+    positions, masks after the ZNCC gate, and the GN lane-iterations."""
+    args = _klt_case(cuda, 3, inverse, half_patch=half_patch)
+    it_k = torch.full((1,), -1, dtype=torch.int32, device=cuda)
+    it_e = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    n0 = klt_k.klt_pyramid_anchored_kernel.launches
+    out_k = klt_k.klt_pyramid_anchored_kernel(*args, gn_iterations=it_k)
+    out_e = klt_k.klt_pyramid_anchored_eager(*args, gn_iterations=it_e)
+    torch.cuda.synchronize()
+    assert klt_k.klt_pyramid_anchored_kernel.launches == n0 + 1
+    assert _same_bits(out_k, out_e), float((out_k[0] - out_e[0]).abs().max())
+    assert int(it_k) == int(it_e) > 0
+    if half_patch > 0:  # a 1x1 patch has a singular normal matrix
+        assert int(out_k[1].sum()) > 100, int(out_k[1].sum())
+
+
+@pytest.mark.parametrize("half_patch", HALF_PATCHES)
+@pytest.mark.parametrize("inverse", [False, True])
+def test_klt_frame_kernel_bit_for_bit_at_half_patch(cuda, half_patch, inverse):
+    """K1 in frame mode at each half-patch: the plain version's bits,
+    forward and then backward from the kernel's forward result."""
+    pyr1, pyr2, kp, guess, valid, cfg = _frame_case(cuda, 4, inverse, half_patch=half_patch)
+    it_k = torch.full((1,), -1, dtype=torch.int32, device=cuda)
+    it_e = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    fw_k = klt_k.klt_pyramid_kernel(pyr1, pyr2, kp, guess, valid, cfg, gn_iterations=it_k)
+    fw_e = klt_k.klt_pyramid_eager(pyr1, pyr2, kp, guess, valid, cfg, gn_iterations=it_e)
+    bk_k = klt_k.klt_pyramid_kernel(pyr2, pyr1, fw_k[0], kp, fw_k[1], cfg)
+    bk_e = klt_k.klt_pyramid_eager(pyr2, pyr1, fw_k[0], kp, fw_k[1], cfg)
+    torch.cuda.synchronize()
+    assert _same_bits(fw_k, fw_e) and _same_bits(bk_k, bk_e)
+    assert int(it_k) == int(it_e) > 0
+    if half_patch > 0:
+        assert int(fw_k[1].sum()) > 100, int(fw_k[1].sum())
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_klt_frame_kernel_at_nine_levels(cuda, inverse):
+    """Frame mode over 9 levels of 376x1240 (the coarsest 1x4 px): the plain
+    version's bits, forward and backward."""
+    pyr1, pyr2, kp, guess, valid, cfg = _frame_case(cuda, 9, inverse, H=376, W=1240, shift=(3, 5))
+    assert tuple(pyr1[8].shape) == (1, 4) and len(pyr1) == 9
+    fw_k = klt_k.klt_pyramid_kernel(pyr1, pyr2, kp, guess, valid, cfg)
+    fw_e = klt_k.klt_pyramid_eager(pyr1, pyr2, kp, guess, valid, cfg)
+    bk_k = klt_k.klt_pyramid_kernel(pyr2, pyr1, fw_k[0], kp, fw_k[1], cfg)
+    bk_e = klt_k.klt_pyramid_eager(pyr2, pyr1, fw_k[0], kp, fw_k[1], cfg)
+    torch.cuda.synchronize()
+    assert _same_bits(fw_k, fw_e) and _same_bits(bk_k, bk_e)
+    assert int(fw_k[1].sum()) > 200, int(fw_k[1].sum())
+
+
 def test_klt_kernel_refuses_bad_input(cuda):
+    """The wrappers refuse a half-patch past the reference's halo of 21 and
+    a level without a row, beside malformed tensors."""
     anchors, kp, pyr2, guess, valid, cfg = _klt_case(cuda, 3, False, n=64)
     with pytest.raises(ValueError):
         klt_k.klt_pyramid_anchored_kernel(anchors.double(), kp, pyr2, guess, valid, cfg)
-    with pytest.raises(ValueError):
-        klt_k.klt_pyramid_anchored_kernel(anchors, kp, pyr2, guess, valid, cfg._replace(half_patch=4))
+    with pytest.raises(ValueError, match="halo"):
+        klt_k.klt_pyramid_anchored_kernel(anchors, kp, pyr2, guess, valid, cfg._replace(half_patch=10))
+    pyr1, pyr2f, kpf, guessf, validf, cfgf = _frame_case(cuda, 9, False, n=64)
+    assert pyr1[8].shape[0] == 0  # 188 rows have none left at level 8
+    with pytest.raises(ValueError, match="row"):
+        klt_k.klt_pyramid_kernel(pyr1, pyr2f, kpf, guessf, validf, cfgf)
+    with pytest.raises(ValueError, match="halo"):
+        klt_k.klt_pyramid_kernel(pyr1, pyr2f, kpf, guessf, validf, cfgf._replace(levels=4, half_patch=10))
     # The levels go to the kernel as separate pointers: a strided level is refused.
     wide = torch.zeros((pyr2[1].shape[0], pyr2[1].shape[1] + 4), device=cuda)
     wide[:, : pyr2[1].shape[1]] = pyr2[1]
@@ -119,7 +197,7 @@ def test_klt_kernel_refuses_bad_input(cuda):
                                           gn_iterations=torch.zeros(1, dtype=torch.int64, device=cuda))
 
 
-def _frame_case(dev, levels, inverse, n=512, H=188, W=620, seed=0, shift=(1, 2)):
+def _frame_case(dev, levels, inverse, n=512, H=188, W=620, seed=0, shift=(1, 2), half_patch=3):
     """Two images a shift apart, keypoints up to the border (so some 9x9
     windows clamp on the coarse levels) and guesses a few px off."""
     rng = np.random.default_rng(seed)
@@ -130,7 +208,8 @@ def _frame_case(dev, levels, inverse, n=512, H=188, W=620, seed=0, shift=(1, 2))
     guess = kp + torch.from_numpy(rng.uniform(-2.0, 2.0, (n, 2)).astype(np.float32))
     pyr1 = tuple(p.to(dev) for p in pyramid.build_pyramid(img1, levels))
     pyr2 = tuple(p.to(dev) for p in pyramid.build_pyramid(img2, levels))
-    return pyr1, pyr2, kp.to(dev), guess.to(dev), valid.to(dev), klt.KLTConfig(levels=levels, inverse=inverse)
+    cfg = klt.KLTConfig(levels=levels, inverse=inverse, half_patch=half_patch)
+    return pyr1, pyr2, kp.to(dev), guess.to(dev), valid.to(dev), cfg
 
 
 @pytest.mark.parametrize("levels", [3, 4])
@@ -223,12 +302,14 @@ def _pose_case(dev, n=512, seed=0, large_angle=False):
 @pytest.mark.parametrize("strategy", ["default", "strategy1"])
 @pytest.mark.parametrize("n,large_angle", [(0, False), (1, False), (31, False), (33, False), (64, False),
                                            (511, False), (512, False), (513, False), (1000, False), (4096, False),
-                                           (512, True)])
+                                           (512, True), (4097, False), (6000, False), (8192, False), (16384, False)])
 def test_pose_kernel_matches_eager(cuda, strategy, n, large_angle, verification, monkeypatch):
     """Bit for bit, at edge counts on either side of csrc/pose.cu's chunks
-    of 32 and of its ring of 16 chunks, up to its kMaxEdges (4096), and with
-    a prior LARGE_ANGLE rad off, whose steps take the retraction's sinf
-    branch (the plain version's torch.sin, CUDA's sinf on the card)."""
+    of 32 and of its ring of 16 chunks, on either side of its shared copy's
+    capacity (`shared_edges`: 4,097 and 6,000 edges in shared memory, 8,192
+    and 16,384 read from global memory), and with a prior LARGE_ANGLE rad
+    off, whose steps take the retraction's sinf branch (the plain version's
+    torch.sin, CUDA's sinf on the card)."""
     intr, T, P, uv, valid = _pose_case(cuda, n=n, large_angle=large_angle)
     cfg = lm.LMConfig(strategy=strategy)
     kw = {"cfg": cfg, "verification": verification, "drop_kernel_after": 3 if verification else 2}
@@ -259,14 +340,28 @@ def test_pose_kernel_matches_eager(cuda, strategy, n, large_angle, verification,
     assert np.array_equal(a_k, a_e), (a_k, a_e)
 
 
+def test_pose_kernel_shared_capacity(cuda):
+    """The shared copy holds what the opt-in shared memory leaves beside the
+    ring (some 6,700 edges on an H100), so test_pose_kernel_matches_eager's
+    edge counts take both instantiations."""
+    cap = pose_k.shared_edges(cuda)
+    assert 6000 <= cap < 8192, cap
+
+
 def test_pose_kernel_refuses_bad_input(cuda):
+    """Malformed tensors are refused; no edge count is (past the shared
+    copy's capacity the kernel reads its edges from global memory)."""
     intr, T, P, uv, valid = _pose_case(cuda, n=64)
     with pytest.raises(ValueError):
         pose_k.estimate_pose_kernel(intr, T, P, uv, valid, attempts=torch.zeros(3, dtype=torch.int32, device=cuda))
-    big = pose_k.MAX_EDGES + 1
-    with pytest.raises(ValueError, match="edges"):
-        pose_k.estimate_pose_kernel(intr, T, P[:1].expand(big, 3).contiguous(), uv[:1].expand(big, 2).contiguous(),
-                                    valid[:1].expand(big).contiguous())
+    with pytest.raises(ValueError, match="float32"):
+        pose_k.estimate_pose_kernel(intr, T, P.double(), uv, valid)
+    with pytest.raises(ValueError, match="contiguous"):
+        pose_k.estimate_pose_kernel(intr, T, P, uv.t().contiguous().t(), valid)
+    big = pose_k.shared_edges(cuda) + 1
+    T_k, in_k, n_k = pose_k.estimate_pose_kernel(intr, T, P[:1].expand(big, 3).contiguous(),
+                                                 uv[:1].expand(big, 2).contiguous(), valid[:1].expand(big).contiguous())
+    assert torch.isfinite(T_k).all() and in_k.shape == (big,) and int(n_k) == int(in_k.sum())
 
 
 def test_pose_kernel_all_invalid(cuda):

@@ -26,6 +26,7 @@ bits.
 
 from __future__ import annotations
 
+import platform
 from fractions import Fraction
 from pathlib import Path
 
@@ -293,6 +294,23 @@ def test_kernel_arithmetic_is_the_plain_versions(host, E):
         assert np.array_equal(pose_host.host_retract(host, T.numpy(), dx.numpy()), se3.retract(T, dx).numpy())
 
 
+@pytest.mark.parametrize("E", [300, 8192])
+def test_kernel_global_edges_are_the_plain_versions(host, E):
+    """Above the shared copy's capacity csrc/pose.cu's producers read each
+    edge from the caller's arrays (its kGlobal instantiation): the pass
+    gives `lm.pose_pass`'s bits as the shared copy does, since every sum's
+    order is set by the edge index."""
+    intr = reprojection.Intrinsics(360.0, 360.0, 310.0, 94.0)
+    T0, P, uv, use = _pose_problem(E + 1, E)
+    for robust in (True, False):
+        H, b, chi = lm.pose_pass(intr, T0, P, uv, use, "huber" if robust else "trivial", 5.991)
+        args = (host, T0.numpy(), P.numpy(), uv.numpy(), use.numpy(), intr, robust, 5.991)
+        tot = pose_host.host_pass(*args, global_edges=True)
+        assert np.array_equal(tot, pose_host.host_pass(*args))
+        assert np.array_equal(tot[:36], H.numpy().reshape(36)) and np.array_equal(tot[36:42], b.numpy())
+        assert np.float32(0.5) * tot[42] == chi.item()
+
+
 def test_fma_is_the_kernels(host):
     """`rounding.fma` gives the bits of the kernel's `__fmaf_rn` (the host's
     `fmaf` here) on the midpoint cases and on random operands."""
@@ -302,3 +320,24 @@ def test_fma_is_the_kernels(host):
     for x, y, z in ((a, b, c), r):
         mine = rounding.fma(*(torch.from_numpy(v) for v in (x, y, z))).numpy()
         assert np.array_equal(mine, pose_host.host_fma(host, x, y, z))
+
+
+@pytest.mark.skipif(platform.machine().lower() not in ("x86_64", "amd64"), reason="ATen's x86 reduction order")
+@pytest.mark.parametrize("threads", [1, 2, 8])
+def test_rows_sum_is_the_cpus_sum(threads):
+    """`rounding.rows_sum` (scanline stereo's sums over a patch's rows, as
+    elementwise ops that a card computes alike) gives the bits of this
+    CPU's `torch.sum(x, dim=1)`, which the CPU port used before, at every
+    row count of half-patches 0..9 and column counts on both sides of
+    ATen's blocks of 32, at several thread counts."""
+    rng = np.random.default_rng(threads)
+    before = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        for P in range(1, 20, 2):
+            for C in (2, 3, 5, 7, 8, 31, 32, 33, 64, 97, 130):
+                for N in (1, 150, 512):
+                    x = torch.from_numpy((rng.normal(0, 50, (N, P, C))).astype(np.float32))
+                    assert torch.equal(rounding.rows_sum(x), torch.sum(x, dim=1)), (P, C, N)
+    finally:
+        torch.set_num_threads(before)
