@@ -157,7 +157,6 @@ import json
 import subprocess
 import sys
 import time
-import warnings
 import multiprocessing
 import os
 import shutil
@@ -166,6 +165,8 @@ from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+from legoslam_tpu_torch.utils.timer import count_host_reads
 
 SHAPE = (188, 620)        # KITTI half resolution
 N_FRAMES = 40
@@ -565,21 +566,6 @@ def render_worlds(pool, workers: int, kinds=("bench", LAP)):
         return out
 
     return gather
-
-
-def count_host_reads(fn):
-    """(fn's result, device-to-host synchronizations it made), counted by
-    CUDA's sync debug mode."""
-    torch.cuda.synchronize()
-    mode = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            out = fn()
-    finally:
-        torch.cuda.set_sync_debug_mode(mode)
-    return out, sum("synchroniz" in str(w.message) for w in caught)
 
 
 def klt_inputs(frames, dev, half_patch: int = 3):
@@ -1130,14 +1116,7 @@ def run_slices(dev, kind, smi, klt_k, pose_k, frames, lap_frames, kitti_root, sc
     ba_runs = {}
     for precision in ("f32", "bf16"):
         ba_cfg_p = ba_cfg_b._replace(assembly_precision=precision)
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                map_g, st_g = backend.ba_step(cfg_b, rig_b, wmap_b, ba_cfg_p)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        host_reads = sum("synchroniz" in str(w.message) for w in caught)
+        (map_g, st_g), host_reads = count_host_reads(lambda: backend.ba_step(cfg_b, rig_b, wmap_b, ba_cfg_p))
         map_c, st_c = backend.ba_step(cfg_b, rig_b.to("cpu"), wmap_b.to("cpu"), ba_cfg_p)
         ms_ba = wall_ms(lambda: backend.ba_step(cfg_b, rig_b, wmap_b, ba_cfg_p), 5)
         chi_g, chi_c = float(st_g.chi), float(st_c.chi)

@@ -1,9 +1,10 @@
-"""What the two apps share: the device check, the config flags and the
-checkpoint flags."""
+"""What the two apps share: the device check, the config flags, the
+checkpoint flags and `--profile`."""
 
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
 
@@ -27,6 +28,9 @@ def add_common_flags(ap: argparse.ArgumentParser) -> None:
                          "a tracking.gif (0 = final-state rendering only)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda; cpu runs the kernels' plain versions)")
+    ap.add_argument("--profile", default="", metavar="A:B",
+                    help="run frames A..B-1 of this run under torch.profiler, write "
+                         "<out_dir>/profile.trace.json.gz and log the program's spans")
 
 
 def apply_flags(config, args) -> None:
@@ -47,18 +51,82 @@ def device_ok(device: str, log) -> bool:
     return True
 
 
+def _profile_window(spec: str):
+    """`--profile A:B` as (A, B), or None where the flag is not given."""
+    if not spec:
+        return None
+    a, _, b = spec.partition(":")
+    try:
+        window = int(a), int(b)
+    except ValueError:
+        raise SystemExit(f"--profile takes A:B, two frame counts; got {spec!r}") from None
+    if not 0 <= window[0] < window[1]:
+        raise SystemExit(f"--profile A:B needs 0 <= A < B; got {spec!r}")
+    return window
+
+
+class _FrameProfiler:
+    """`torch.profiler` over frames A..B-1 of a run (counted from its first
+    step), on the CPU and, where the run is on a card, the card.  At B, or
+    at the run's end, writes the trace to `path` and logs the program's
+    spans (utils/timer.py `summary`)."""
+
+    def __init__(self, window, device: str, path: str, log):
+        from torch.profiler import ProfilerActivity, profile
+
+        cuda = torch.device(device).type == "cuda"
+        self.window, self.path, self.log = window, path, log
+        self.prof = profile(activities=[ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else []))
+        self.on = False
+
+    def before(self, n: int) -> None:
+        if n == self.window[0]:
+            self.prof.start()
+            self.on = True
+
+    def after(self, n: int) -> None:
+        if self.on and n + 1 >= self.window[1]:
+            self.stop()
+
+    def stop(self) -> None:
+        if not self.on:
+            return
+        self.prof.stop()
+        self.on = False
+        from legoslam_tpu_torch.utils import timer
+
+        os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
+        self.prof.export_chrome_trace(self.path)
+        self.log.info("profile of frames %d..%d written to %s; the program's spans:\n%s",
+                      self.window[0], self.window[1] - 1, self.path, timer.summary(timer.records()))
+
+
 def run_frames(vo, args, log, max_frames: int = 0) -> int:
     """Resume if asked, step the sequence (at most `--stop_after` or
-    `max_frames` frames), save a checkpoint if asked; returns the number of
-    frames processed in this call."""
+    `max_frames` frames), profiling `--profile`'s frames, and save a
+    checkpoint if asked; returns the number of frames processed in this
+    call."""
     if args.load_checkpoint:
         vo.load_checkpoint(args.load_checkpoint)
         log.info("resumed from %s at frame index %d", args.load_checkpoint, vo.dataset.current_index)
     limit = args.stop_after or max_frames
+    window = _profile_window(args.profile)
     n = 0
-    if limit:
-        while n < limit and vo.step():
+    if limit or window:
+        path = os.path.join(args.out_dir, "profile.trace.json.gz")
+        prof = _FrameProfiler(window, args.device, path, log) if window else None
+        while not limit or n < limit:
+            if prof:
+                prof.before(n)
+            if not vo.step():
+                break
+            if prof:
+                prof.after(n)
             n += 1
+        if prof:
+            prof.stop()
+        if not limit:
+            vo.flush_ba()
     else:
         n0 = len(vo.outputs)
         vo.run()

@@ -18,6 +18,7 @@ import torch
 
 from legoslam_tpu_torch.ops import rounding
 from legoslam_tpu_torch.ops.rounding import div_const, row_sum, small_matmul, small_matvec
+from legoslam_tpu_torch.utils import timer
 
 # Below this rotation angle (radians) the Taylor expansions are used instead
 # of the trig forms (sized for float32, see the reference module).
@@ -135,7 +136,13 @@ def _rt_to_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Assemble ``(..., 4, 4)`` from rotation ``(..., 3, 3)`` and translation."""
     top = torch.cat([R, t[..., :, None]], dim=-1)
     bottom = torch.zeros_like(top[..., :1, :])
-    bottom[..., 0, 3] = 1.0
+    if bottom.dim() > 2:
+        bottom[..., 0, 3] = 1.0
+    else:
+        # One matrix's corner is a 0-dim view, which a Python float fills
+        # by a copy from the host: on a card, a synchronization.
+        with timer.reading("se3_corner"):
+            bottom[0, 3] = 1.0
     return torch.cat([top, bottom], dim=-2)
 
 

@@ -16,6 +16,7 @@ import math
 import torch
 
 from legoslam_tpu_torch.ops import rounding
+from legoslam_tpu_torch.utils import timer
 
 
 def _sym_invariants(S: torch.Tensor):
@@ -86,7 +87,8 @@ def _null_and_sigmas(A: torch.Tensor):
     v = torch.gather(adjS, -1, col[..., None, None].expand(adjS.shape[:-1] + (1,)))[..., 0]
     vn2 = torch.sum(v * v, dim=-1)
     safe = vn2 > 0
-    fallback = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=A.dtype, device=A.device)
+    with timer.reading("triangulate_fallback"):  # a constant from the host
+        fallback = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=A.dtype, device=A.device)
     v = torch.where(safe[..., None], v, fallback)
     vn2 = torch.where(safe, vn2, 1.0)
     Av = (A * v[..., None, :]).sum(-1)

@@ -18,6 +18,7 @@ import torch
 
 from legoslam_tpu_torch.ops import interp, prefix, rounding
 from legoslam_tpu_torch.ops.rounding import div_const, patch_mean, patch_sum, rows_sum
+from legoslam_tpu_torch.utils import timer
 
 
 class ScanlineConfig(NamedTuple):
@@ -113,7 +114,7 @@ def match(
     active = valid & ~ambiguous
     ok0 = active
     i = 0
-    while i < cfg.refine_iterations and bool(active.any()):
+    while i < cfg.refine_iterations and timer.read(active.any(), "stereo_refine"):
         halo = sample_halo(u)
         win = halo[:, :, 1:-1]
         gx = 0.5 * (halo[:, :, 2:] - halo[:, :, :-2])

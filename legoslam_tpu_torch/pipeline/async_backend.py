@@ -41,6 +41,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from legoslam_tpu_torch.pipeline import backend as backend_mod
+from legoslam_tpu_torch.utils import timer
 
 
 
@@ -176,9 +177,10 @@ class AsyncBackend:
             job.future.set_exception(e)
 
     def _solve(self, wmap) -> backend_mod.BAResult:
-        if self.ba_device is not None:
-            wmap = wmap.to(self.ba_device)
-        return backend_mod.solve_window(self.cfg, self.rig, wmap, self.ba_cfg, solve_fn=self.solve_fn)
+        with timer.span("ba"):
+            if self.ba_device is not None:
+                wmap = wmap.to(self.ba_device)
+            return backend_mod.solve_window(self.cfg, self.rig, wmap, self.ba_cfg, solve_fn=self.solve_fn)
 
     # --- step 4 ---
     def flush(self, wmap):
@@ -201,4 +203,5 @@ class AsyncBackend:
                     t.record_stream(main)
         self.merged_stats.append(result.stats)
         self.stats["merged"] += 1
-        return backend_mod.merge_ba_result(wmap, result)
+        with timer.span("ba_merge"):
+            return backend_mod.merge_ba_result(wmap, result)

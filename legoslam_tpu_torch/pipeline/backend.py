@@ -28,6 +28,7 @@ from legoslam_tpu_torch.pipeline.frontend import FrontendConfig, _intr
 from legoslam_tpu_torch.pipeline.state import WorldMap
 from legoslam_tpu_torch.solver import lm as lm_ops
 from legoslam_tpu_torch.solver import robust, schur
+from legoslam_tpu_torch.utils import timer
 
 _HASH = 2654435761          # odd multiplier of the landmark-id hash (mod 2^32)
 _INVALID = 0xFFFFFFFF       # sort key of an invalid edge
@@ -179,7 +180,8 @@ def solve_window(cfg: FrontendConfig, rig: StereoRig, wmap: WorldMap, ba_cfg: BA
     tracking has moved on (pipeline/async_backend.py)."""
     if cfg.use_marg_prior and solve_fn is not None:
         raise ValueError("use_marg_prior is not supported with an injected solve_fn")
-    problem, counts = build_problem(cfg, rig, wmap)
+    with timer.span("ba_problem"):
+        problem, counts = build_problem(cfg, rig, wmap)
     lm_cfg = lm_ops.LMConfig(iterations=ba_cfg.iterations, strategy=ba_cfg.strategy,
                              linear_solver=ba_cfg.linear_solver, trace=ba_cfg.trace,
                              assembly_precision=ba_cfg.assembly_precision)
@@ -204,27 +206,31 @@ def solve_window(cfg: FrontendConfig, rig: StereoRig, wmap: WorldMap, ba_cfg: BA
     # camera.
     KW, NF = cfg.caps.window, cfg.caps.max_features
     if solve_fn is None:
-        order = schur.order_for(problem.graph, KW, problem.points.shape[0], widths=(2 * NF, 2 * KW, 2))
-        state, res = lm_ops.solve_ba(problem.graph, problem.poses, problem.points, kernel=robust.HUBER,
-                                     delta=ba_cfg.chi2_threshold, cfg=lm_cfg, engine=ba_cfg.engine,
-                                     pose_prior=pose_prior, order=order)
+        with timer.span("ba_order"):
+            order = schur.order_for(problem.graph, KW, problem.points.shape[0], widths=(2 * NF, 2 * KW, 2))
+        with timer.span("lm_solve"):
+            state, res = lm_ops.solve_ba(problem.graph, problem.poses, problem.points, kernel=robust.HUBER,
+                                         delta=ba_cfg.chi2_threshold, cfg=lm_cfg, engine=ba_cfg.engine,
+                                         pose_prior=pose_prior, order=order)
     else:
-        state, res = solve_fn(problem.graph, problem.poses, problem.points, lm_cfg)
+        with timer.span("lm_solve"):
+            state, res = solve_fn(problem.graph, problem.poses, problem.points, lm_cfg)
         if ba_cfg.trace and res.trace.shape[0] != ba_cfg.iterations:
             # An injected solver may record no trace; the stats keep their shape.
             res = res._replace(trace=torch.full((ba_cfg.iterations, 2), torch.nan, dtype=problem.poses.dtype,
                                                 device=problem.poses.device))
 
-    # Outlier classification at the optimum (robust chi2 per edge, raw points).
-    chis = schur.edge_chi2(problem.graph, state.poses, state.points, robust.HUBER, ba_cfg.chi2_threshold)
-    e_valid = schur.edge_mask(problem.graph)
-    th = adaptive_chi2_threshold(chis, e_valid, ba_cfg)
-    outlier_edge = e_valid & (chis > th)
-    n_out = outlier_edge.sum(dtype=torch.int32)
+    with timer.span("ba_classify"):
+        # Outlier classification at the optimum (robust chi2 per edge, raw points).
+        chis = schur.edge_chi2(problem.graph, state.poses, state.points, robust.HUBER, ba_cfg.chi2_threshold)
+        e_valid = schur.edge_mask(problem.graph)
+        th = adaptive_chi2_threshold(chis, e_valid, ba_cfg)
+        outlier_edge = e_valid & (chis > th)
+        n_out = outlier_edge.sum(dtype=torch.int32)
 
-    # Verdicts back onto the (2, KW, NF) grid through e_src (unique indices).
-    out_grid = torch.zeros((2 * KW * NF,), dtype=torch.bool, device=chis.device)
-    out_grid[problem.e_src] = outlier_edge
+        # Verdicts back onto the (2, KW, NF) grid through e_src (unique indices).
+        out_grid = torch.zeros((2 * KW * NF,), dtype=torch.bool, device=chis.device)
+        out_grid[problem.e_src] = outlier_edge
     stats = BAStats(
         chi=res.chi, iterations=res.iterations, n_outlier=n_out,
         n_inlier=e_valid.sum(dtype=torch.int32) - n_out,
@@ -297,8 +303,10 @@ def ba_step(cfg: FrontendConfig, rig: StereoRig, wmap: WorldMap,
     """One synchronous backend cycle: snapshot -> LM solve -> adaptive outlier
     rejection -> observation removal -> write-back (backend_lego.cpp:56-218);
     `solve_fn` as in `solve_window`."""
-    result = solve_window(cfg, rig, wmap, ba_cfg, solve_fn=solve_fn)
-    return merge_ba_result(wmap, result), result.stats
+    with timer.span("ba"):
+        result = solve_window(cfg, rig, wmap, ba_cfg, solve_fn=solve_fn)
+        with timer.span("ba_merge"):
+            return merge_ba_result(wmap, result), result.stats
 
 
 def no_stats(ba_cfg: BAConfig, dtype, device) -> BAStats:

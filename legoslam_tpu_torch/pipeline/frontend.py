@@ -29,6 +29,7 @@ from legoslam_tpu_torch.ops.rounding import div_const, small_matvec
 from legoslam_tpu_torch.pipeline.state import Capacities, Features, WorldMap
 from legoslam_tpu_torch.solver import lm as lm_ops
 from legoslam_tpu_torch.solver import marginalization, reprojection
+from legoslam_tpu_torch.utils import timer
 
 
 class FrontendConfig(NamedTuple):
@@ -242,13 +243,16 @@ def detect_features(cfg: FrontendConfig, img: torch.Tensor, feats: Features) -> 
     tgt = n_live + torch.arange(pos.shape[0], dtype=torch.int32, device=img.device)
     # The reference drops out-of-range and invalid writes: mask them out.
     put = dvalid & (tgt < nf)
-    idx = tgt[put].long()
-    uv = compact.uv.clone()
-    uv[idx] = pos[put]
-    valid = keep.clone()
-    valid[idx] = True
-    lmv = compact.lm.clone()
-    lmv[idx] = -1
+    # Mask indexing and fills from Python scalars: on a card, each a
+    # synchronization.
+    with timer.reading("detect_append"):
+        idx = tgt[put].long()
+        uv = compact.uv.clone()
+        uv[idx] = pos[put]
+        valid = keep.clone()
+        valid[idx] = True
+        lmv = compact.lm.clone()
+        lmv[idx] = -1
     return compact.replace(uv=uv, uv_r=torch.zeros_like(uv), has_right=torch.zeros_like(valid), lm=lmv, valid=valid)
 
 
@@ -300,8 +304,9 @@ def triangulate_new_points(
 
     Returns (feats', map', born_mask)."""
     cand = feats.valid & feats.has_right & (feats.lm < 0)
-    pn_l = rig.left.pixel2camera(feats.uv)[..., :2]
-    pn_r = rig.right.pixel2camera(feats.uv_r)[..., :2]
+    with timer.reading("triangulate_rays"):  # each copies its depth of 1 from the host
+        pn_l = rig.left.pixel2camera(feats.uv)[..., :2]
+        pn_r = rig.right.pixel2camera(feats.uv_r)[..., :2]
     pt_rig, ok = triangulation.triangulate_stereo(
         rig.left.pose, rig.right.pose, pn_l, pn_r, cfg.sing_ratio_threshold
     )
@@ -317,11 +322,12 @@ def triangulate_new_points(
     rank = torch.cumsum(accept.to(torch.int32), dim=0, dtype=torch.int32) - 1
     new_id = wmap.lm_next + rank
     put = accept & (new_id < cfg.caps.landmarks)
-    idx = new_id[put].long()
-    lm_pos = wmap.lm_pos.clone()
-    lm_pos[idx] = p_world[put]
-    lm_alive = wmap.lm_alive.clone()
-    lm_alive[idx] = True
+    with timer.reading("triangulate_append"):
+        idx = new_id[put].long()
+        lm_pos = wmap.lm_pos.clone()
+        lm_pos[idx] = p_world[put]
+        lm_alive = wmap.lm_alive.clone()
+        lm_alive[idx] = True
     wmap = wmap.replace(lm_pos=lm_pos, lm_alive=lm_alive, lm_next=wmap.lm_next + put.sum(dtype=torch.int32))
     feats = feats.replace(lm=torch.where(put, new_id, feats.lm).to(torch.int32))
     return feats, wmap, put
@@ -342,15 +348,17 @@ def _evict_if_full(cfg: FrontendConfig, wmap: WorldMap, T_cur: torch.Tensor) -> 
 
     rel = wmap.kf_pose @ se3.se3_inv(T_cur)
     dis = torch.linalg.vector_norm(se3.se3_log(rel), dim=-1)
-    big = torch.tensor(1e30, dtype=dis.dtype, device=dis.device)
-    dis_valid = torch.where(wmap.kf_valid, dis, big)
-    min_slot = torch.argmin(dis_valid)
-    max_slot = torch.argmax(torch.where(wmap.kf_valid, dis, -big))
-    evict = torch.where(dis_valid[min_slot] < cfg.min_dis_th, min_slot, max_slot)
-
-    obs_l = wmap.kf_obs_left[evict] & full
-    obs_r = wmap.kf_obs_right[evict] & full
-    lm_idx = torch.clamp(wmap.kf_lm[evict], min=0).long()
+    # A constant from the host and reads by a 0-dim index: on a card, each
+    # a synchronization.
+    with timer.reading("evict_pick"):
+        big = torch.tensor(1e30, dtype=dis.dtype, device=dis.device)
+        dis_valid = torch.where(wmap.kf_valid, dis, big)
+        min_slot = torch.argmin(dis_valid)
+        max_slot = torch.argmax(torch.where(wmap.kf_valid, dis, -big))
+        evict = torch.where(dis_valid[min_slot] < cfg.min_dis_th, min_slot, max_slot)
+        obs_l = wmap.kf_obs_left[evict] & full
+        obs_r = wmap.kf_obs_right[evict] & full
+        lm_idx = torch.clamp(wmap.kf_lm[evict], min=0).long()
     dec = obs_l.to(torch.int32) + obs_r.to(torch.int32)
     lm_obs = wmap.lm_obs.clone().index_add_(0, lm_idx, -dec)
 
@@ -373,7 +381,9 @@ def _evict_if_full(cfg: FrontendConfig, wmap: WorldMap, T_cur: torch.Tensor) -> 
 
     def clear(slot_arr, fill):
         out = slot_arr.clone()
-        out[evict] = torch.where(full, torch.as_tensor(fill, dtype=out.dtype, device=out.device), slot_arr[evict])
+        with timer.reading("evict_clear"):
+            out[evict] = torch.where(full, torch.as_tensor(fill, dtype=out.dtype, device=out.device),
+                                     slot_arr[evict])
         return out
 
     return wmap.replace(
@@ -398,7 +408,8 @@ def _register_keyframe(wmap: WorldMap, feats: Features, born: torch.Tensor, T: t
 
     def put(arr, value):
         out = arr.clone()
-        out[slot] = value
+        with timer.reading("register_slot"):  # a write at a 0-dim index
+            out[slot] = value
         return out
 
     return wmap.replace(
@@ -430,12 +441,17 @@ def insert_keyframe(
     """InsertKeyframe (frontend_g2o.cpp:77-102): evict-if-full, detect new
     features, re-anchor every live template at this keyframe, match in the
     right image, triangulate, and write the keyframe record."""
-    wmap = _evict_if_full(cfg, wmap, T_cur)
-    feats = detect_features(cfg, img_left, feats)
-    feats = feats.replace(anchor=klt_ops.extract_anchors(pyr_left, feats.uv, cfg.klt), anchor_uv=feats.uv)
-    feats = find_features_in_right(cfg, rig, pyr_left, pyr_right, feats, wmap.lm_pos, T_cur)
-    feats, wmap, born = triangulate_new_points(cfg, rig, feats, wmap, T_cur)
-    return feats, _register_keyframe(wmap, feats, born, T_cur, frame_id)
+    with timer.span("evict"):
+        wmap = _evict_if_full(cfg, wmap, T_cur)
+    with timer.span("detect"):
+        feats = detect_features(cfg, img_left, feats)
+        feats = feats.replace(anchor=klt_ops.extract_anchors(pyr_left, feats.uv, cfg.klt), anchor_uv=feats.uv)
+    with timer.span("stereo"):
+        feats = find_features_in_right(cfg, rig, pyr_left, pyr_right, feats, wmap.lm_pos, T_cur)
+    with timer.span("triangulate"):
+        feats, wmap, born = triangulate_new_points(cfg, rig, feats, wmap, T_cur)
+    with timer.span("register"):
+        return feats, _register_keyframe(wmap, feats, born, T_cur, frame_id)
 
 
 def stereo_init(
@@ -453,12 +469,16 @@ def stereo_init(
     on failure the map passes through unchanged."""
     dev = img_left.device
     empty = Features.empty(cfg.caps, img_left.dtype, cfg.klt.levels, 2 * cfg.klt.half_patch + 3, dev)
-    feats = detect_features(cfg, img_left, empty)
-    feats = feats.replace(anchor=klt_ops.extract_anchors(pyr_left, feats.uv, cfg.klt), anchor_uv=feats.uv)
+    with timer.span("detect"):
+        feats = detect_features(cfg, img_left, empty)
+        feats = feats.replace(anchor=klt_ops.extract_anchors(pyr_left, feats.uv, cfg.klt), anchor_uv=feats.uv)
     T0 = torch.eye(4, dtype=img_left.dtype, device=dev)
-    feats = find_features_in_right(cfg, rig, pyr_left, pyr_right, feats, wmap.lm_pos, T0)
-    n_match = int((feats.valid & feats.has_right).sum())
+    with timer.span("stereo"):
+        feats = find_features_in_right(cfg, rig, pyr_left, pyr_right, feats, wmap.lm_pos, T0)
+    n_match = timer.read((feats.valid & feats.has_right).sum(), "stereo_init")
     if n_match < cfg.num_features_init:
         return False, feats, wmap
-    feats, wmap, born = triangulate_new_points(cfg, rig, feats, wmap, T0)
-    return True, feats, _register_keyframe(wmap, feats, born, T0, frame_id)
+    with timer.span("triangulate"):
+        feats, wmap, born = triangulate_new_points(cfg, rig, feats, wmap, T0)
+    with timer.span("register"):
+        return True, feats, _register_keyframe(wmap, feats, born, T0, frame_id)

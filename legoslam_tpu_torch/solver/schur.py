@@ -44,6 +44,7 @@ import torch
 
 from legoslam_tpu_torch.geometry import se3
 from legoslam_tpu_torch.solver import reprojection, robust
+from legoslam_tpu_torch.utils import timer
 
 ENGINES = ("soa", "blocks")
 
@@ -166,9 +167,9 @@ def build_order(graph: BAGraph, K: int, L: int, widths=None) -> BAOrder:
     vm = edge_mask(graph)
     dests = _dests(graph, K, L)
     if widths is None:
-        widths = torch.stack([torch.zeros((n + 1,), dtype=torch.int64, device=vm.device)
-                              .index_add_(0, torch.where(vm, d, n), torch.ones_like(d))[:n].amax()
-                              for d, n in dests]).tolist()
+        widths = timer.read(torch.stack([torch.zeros((n + 1,), dtype=torch.int64, device=vm.device)
+                                         .index_add_(0, torch.where(vm, d, n), torch.ones_like(d))[:n].amax()
+                                         for d, n in dests]), "build_order")
     return BAOrder(*(_segment_table(d, vm, n, max(w, 1)) for (d, n), w in zip(dests, widths)))
 
 

@@ -25,9 +25,12 @@ So are loop verification (`LoopCloser._verify`) and `marginalize`.
 `process_chunk` on the card is its stepwise run bit for bit; the async
 backend's side stream must keep its snapshot intact until the merge; the
 device pose graph gives the same bits twice and agrees with the CPU.
-"""
 
-import warnings
+Every synchronization of a tracking frame and of a keyframe frame happens
+inside one of the program's `read` spans (utils/timer.py), and an explicit
+`torch.cuda.synchronize()`, such as the benchmark's spans end in, is not
+counted as one.
+"""
 
 import numpy as np
 import pytest
@@ -38,6 +41,7 @@ from legoslam_tpu_torch.kernels import klt as klt_k
 from legoslam_tpu_torch.kernels import pose as pose_k
 from legoslam_tpu_torch.ops import klt, pyramid
 from legoslam_tpu_torch.solver import lm, reprojection
+from legoslam_tpu_torch.utils import timer
 
 pytestmark = pytest.mark.gpu
 
@@ -417,15 +421,7 @@ def test_ba_step_card_matches_cpu(cuda, monkeypatch, linear_solver):
     assert cfg.caps == Capacities() and int(wmap.num_keyframes()) == 3
     assert ba_cfg.assembly_precision == "bf16"
     ba_cfg = ba_cfg._replace(assembly_precision="f32")
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            map_g, st_g = ba_step(cfg, rig, wmap, ba_cfg)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    reads = sum("synchroniz" in str(w.message) for w in caught)
+    (map_g, st_g), reads = timer.count_host_reads(lambda: ba_step(cfg, rig, wmap, ba_cfg))
     map_c, st_c = ba_step(cfg, rig.to("cpu"), wmap.to("cpu"), ba_cfg)
     assert map_g.lm_pos.is_cuda and st_g.chi.is_cuda
     assert st_g.iterations >= 1 and np.isfinite(float(st_g.chi))
@@ -692,3 +688,46 @@ def test_pose_graph_is_reproducible_and_matches_cpu(cuda):
     assert torch.equal(P1, P2) and torch.equal(r1.chi, r2.chi)
     np.testing.assert_allclose(float(r1.chi), float(rc.chi), rtol=1e-4, atol=1e-7)
     np.testing.assert_allclose(P1.cpu().numpy(), Pc.numpy(), rtol=0, atol=1e-4)
+
+
+def test_every_frame_sync_is_a_named_read(cuda):
+    """Under a profiler, with the benchmark's own spans around the port's
+    stages (each ending in `torch.cuda.synchronize()`, portbench/hooks.py):
+    a tracking frame's synchronizations are its `read` spans, one each, and
+    a keyframe frame's (window BA included) all happen inside its `read`
+    spans, none of which is empty; an explicit synchronize counts none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from legoslam_tpu_torch.pipeline.dataset import SyntheticPlanesDataset
+    from legoslam_tpu_torch.pipeline.visual_odometry import VisualOdometry
+    from legoslam_tpu_torch.utils.config import Config
+    from portbench.hooks import Hooks
+
+    ds = SyntheticPlanesDataset(n_frames=8, shape=(160, 240), focal=260.0, baseline=0.54, speed=0.25)
+    config = Config({"stereo_depth_inferior_limit": 2.0, "stereo_depth_superior_limit": 50.0,
+                     "detect_mask_half": 6, "gftt_min_distance": 6, "max_keyframe_gap": 3})
+    vo = VisualOdometry(config=config, dataset=ds)
+    assert vo.init()
+    for _ in range(4):  # init, then the window past its first BA
+        assert vo.step()
+    hooks = Hooks().install()
+    try:
+        hooks.spans = hooks.sync = True
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            while vo.step():
+                pass
+            with timer.span("frame", frame=-2):
+                torch.cuda.synchronize()
+    finally:
+        hooks.remove()
+    record = timer.records()
+    frames = [s for s in record if s.name == "frame"]
+    assert frames[-1].frame == -2 and frames[-1].syncs == 0
+    branches = {f.attrs["branch"] for f in frames[:-1]}
+    assert {"track", "keyframe"} <= branches, branches
+    for f in frames[:-1]:
+        reads = [s for s in record if s.name == "read" and s.frame == f.frame]
+        assert f.syncs == sum(r.syncs for r in reads) and all(r.syncs >= 1 for r in reads), (f, reads)
+        if f.attrs["branch"] == "track":
+            assert f.syncs == len(reads), (f, reads)
+    assert timer.count_host_reads(torch.cuda.synchronize)[1] == 0

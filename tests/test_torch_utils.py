@@ -200,7 +200,6 @@ def test_final_state_visualization(tmp_path):
     vo.run()
     paths = vo.save_visualization(str(tmp_path), last_frame=np.zeros((160, 240)))
     assert sorted(os.path.basename(p) for p in paths) == ["features.png", "trajectory.png"]
-    assert vo.timers.mean_ms("vo_step_dispatch") > 0 and "vo_step_dispatch" in vo.timers.report()
 
 
 def test_init_reads_dataset_dir(tmp_path):
