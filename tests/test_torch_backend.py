@@ -42,6 +42,7 @@ from legoslam_tpu.utils.config import Config as JConfig
 from legoslam_tpu_torch.pipeline import backend, frontend, state
 from legoslam_tpu_torch.solver import lm, robust, schur
 from legoslam_tpu_torch.utils.config import Config
+from tests.lm_bits import assert_same_lm_bits, lm_both_ways, pose_prior
 from tests.test_torch_vo import F32, OVERRIDES, _dataset
 from tests.torch_parity import (agreement, assert_close, load_kitti_window, t, to_numpy, tree_to_numpy,
                                 window_gap)
@@ -323,3 +324,32 @@ def test_merge_ba_result_on_moved_map(ref):
     # the re-filled slot and the reset landmark kept their own values
     np.testing.assert_array_equal(to_numpy(m.kf_pose)[slot], moved["kf_pose"][slot])
     np.testing.assert_array_equal(to_numpy(m.lm_pos)[lm_reset], moved["lm_pos"][lm_reset])
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("case", ["init", "window", "window_prior", "kitti"])
+def test_device_select_matches_the_eager_loop_on_windows(ref, case, precision):
+    """`solve_window`'s solve, the order tables at the widths it gives them
+    (the sums a card takes), with the accept decision on the device
+    (`lm.lm_select` in `lm.lm_run`'s loop, the attempt the card replays as
+    a CUDA graph) gives `lm.lm_optimize`'s bits on the reference's maps
+    (the first frame's and the four-keyframe window, perturbed, also with
+    a pose prior) and on the KITTI soak's window before frame 25's BA."""
+    if case == "kitti":
+        from legoslam_tpu_torch.geometry.camera import StereoRig
+
+        d, P, _ = load_kitti_window(KITTI_WINDOW)
+        cfg = frontend.FrontendConfig.from_config(Config({"max_landmarks": len(d["lm_pos"])}))
+        rig = StereoRig.from_kitti_projections(P[0], P[1], scale=0.5)
+    else:
+        d = ref["maps"]["init"] if case == "init" else _noisy(ref["maps"]["window"])
+        cfg, rig = ref["cfg"], ref["port_rig"]
+    p, _ = backend.build_problem(cfg, rig, state.worldmap_from_numpy(d))
+    KW, NF = cfg.caps.window, cfg.caps.max_features
+    order = schur.build_order(p.graph, KW, p.points.shape[0], widths=(2 * NF, 2 * KW, 2))
+    prior = lm.ba_prior(pose_prior(p.poses, 5)) if case == "window_prior" else None
+    lm_cfg = lm.LMConfig(assembly_precision=precision)
+    fns = lm.ba_functions(p.graph, order, prior, robust.HUBER, 5.991, lm_cfg)
+    eager, select = lm_both_ways(fns, lm.BAState(p.poses, p.points), lm_cfg)
+    assert_same_lm_bits(eager, select)
+    assert eager.iterations >= 1

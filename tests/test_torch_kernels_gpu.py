@@ -22,6 +22,11 @@ and two card runs on one map must give the same bits (the BA sums run in
 an order fixed by the graph, solver/schur.py).
 So are loop verification (`LoopCloser._verify`) and `marginalize`.
 
+Each window BA attempt on the card is a replay of one captured CUDA graph
+(solver/ba_graph.py): the result is the eager LM loop's bit for bit, a
+signature is captured once, and the async backend's worker thread captures
+and replays it with the same results as an inline solve.
+
 `process_chunk` on the card is its stepwise run bit for bit; the async
 backend's side stream must keep its snapshot intact until the merge; the
 device pose graph gives the same bits twice and agrees with the CPU.
@@ -731,3 +736,136 @@ def test_every_frame_sync_is_a_named_read(cuda):
         if f.attrs["branch"] == "track":
             assert f.syncs == len(reads), (f, reads)
     assert timer.count_host_reads(torch.cuda.synchronize)[1] == 0
+
+
+def _lm_bits():
+    """tests/lm_bits.py, loaded by path (the card's Python has a `tests`
+    package of its own)."""
+    import importlib.util
+    import os
+
+    spec = importlib.util.spec_from_file_location("lm_bits", os.path.join(os.path.dirname(__file__), "lm_bits.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def full_windows():
+    """The last three window BA calls of a 38-frame run of the corridor on
+    the card (a keyframe every second frame): 15 keyframes each, the window
+    full, at the default capacities (K=16, L=2048, E=5120)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from legoslam_tpu_torch.pipeline import backend
+    from legoslam_tpu_torch.pipeline.dataset import SyntheticPlanesDataset
+    from legoslam_tpu_torch.pipeline.visual_odometry import VisualOdometry
+    from legoslam_tpu_torch.utils.config import Config
+
+    calls = []
+    ba_step = backend.ba_step
+    backend.ba_step = lambda *a, **kw: (calls.append(a), ba_step(*a, **kw))[1]
+    try:
+        ds = SyntheticPlanesDataset(n_frames=38, shape=(160, 240), focal=260.0, baseline=0.54, speed=0.25)
+        config = Config({"stereo_depth_inferior_limit": 2.0, "stereo_depth_superior_limit": 50.0,
+                         "detect_mask_half": 6, "gftt_min_distance": 6, "max_keyframe_gap": 2})
+        vo = VisualOdometry(config=config, dataset=ds)
+        assert vo.init()
+        vo.run()
+    finally:
+        backend.ba_step = ba_step
+    assert (vo.statuses() == 1).all()
+    windows = calls[-3:]
+    assert [int(w[2].num_keyframes()) for w in windows] == [15, 15, 15]
+    return windows
+
+
+def _window_problem(window):
+    from legoslam_tpu_torch.pipeline import backend
+    from legoslam_tpu_torch.solver import schur
+
+    cfg, rig, wmap, _ = window
+    p, _ = backend.build_problem(cfg, rig, wmap)
+    KW, NF = cfg.caps.window, cfg.caps.max_features
+    return p, schur.order_for(p.graph, KW, p.points.shape[0], widths=(2 * NF, 2 * KW, 2))
+
+
+@pytest.mark.parametrize("prior", [False, True])
+@pytest.mark.parametrize("precision", ["bf16", "f32"])
+def test_ba_graph_gives_the_eager_loops_bits(cuda, full_windows, monkeypatch, precision, prior):
+    """`lm.solve_ba` on the card, each LM attempt a replay of the captured
+    CUDA graph (solver/ba_graph.py), returns the eager `lm.lm_optimize`'s
+    poses, points, chi, lambda, iterations and attempts bit for bit on
+    three full windows, at bf16 and f32 assembly, with and without a pose
+    prior.  The signature is captured at its first solve and the other
+    windows replay it without a new capture; a solve reads the host once
+    per attempt; its `lm_attempt` spans say `graph` 1."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from legoslam_tpu_torch.solver import ba_graph, robust
+
+    bits = _lm_bits()
+    monkeypatch.setattr(ba_graph, "_SOLVERS", {})
+    captures = []
+    capture = ba_graph._Solver._capture
+    monkeypatch.setattr(ba_graph._Solver, "_capture", lambda self, *a: (captures.append(1), capture(self, *a))[1])
+    cfg = lm.LMConfig(assembly_precision=precision)
+    for k, window in enumerate(full_windows):
+        p, order = _window_problem(window)
+        pose_prior = bits.pose_prior(p.poses, 11 + k) if prior else None
+        (st, res), reads = timer.count_host_reads(lambda: lm.solve_ba(
+            p.graph, p.poses, p.points, cfg=cfg, pose_prior=pose_prior, order=order))
+        fns = lm.ba_functions(p.graph, order, lm.ba_prior(pose_prior) if prior else None, robust.HUBER, 5.991, cfg)
+        eager = lm.lm_optimize(fns, lm.BAState(p.poses, p.points), cfg)
+        bits.assert_same_lm_bits(res, eager)
+        assert st is res.state and st.poses.is_cuda and res.attempts >= res.iterations >= 1
+        assert reads == res.attempts, (reads, res.attempts)
+        assert len(captures) == 1 and len(ba_graph._SOLVERS) == 1
+    with profile(activities=[ProfilerActivity.CPU]):
+        _, res = lm.solve_ba(p.graph, p.poses, p.points, cfg=cfg, pose_prior=pose_prior, order=order)
+    attempts = [s for s in timer.records() if s.name == "lm_attempt"]
+    assert len(attempts) == res.attempts and all(a.attrs["graph"] == 1 for a in attempts)
+    assert not any(s.name == "lm_capture" for s in timer.records()) and len(captures) == 1
+
+
+def test_async_ba_captures_and_replays_on_its_worker(cuda, monkeypatch):
+    """`ba_mode: async` on the card: the window solve's CUDA graph is
+    captured on the async backend's worker thread, while the frame loop
+    tracks on its own, and replayed there; each async solve's result is
+    bit-equal to the inline solve of the same snapshot (`solve_window` on
+    this thread, replaying the same graphs)."""
+    import threading
+
+    from legoslam_tpu_torch.pipeline import async_backend, backend
+    from legoslam_tpu_torch.pipeline.dataset import SyntheticPlanesDataset
+    from legoslam_tpu_torch.pipeline.visual_odometry import VisualOdometry
+    from legoslam_tpu_torch.solver import ba_graph
+    from legoslam_tpu_torch.utils.config import Config
+
+    monkeypatch.setattr(ba_graph, "_SOLVERS", {})
+    threads = []
+    capture = ba_graph._Solver._capture
+    monkeypatch.setattr(ba_graph._Solver, "_capture",
+                        lambda self, *a: (threads.append(threading.get_ident()), capture(self, *a))[1])
+    solves = []
+    solve = async_backend.AsyncBackend._solve
+    monkeypatch.setattr(async_backend.AsyncBackend, "_solve",
+                        lambda self, wmap: (lambda out: (solves.append((wmap, out)), out)[1])(solve(self, wmap)))
+    ds = SyntheticPlanesDataset(n_frames=14, shape=(160, 240), focal=260.0, baseline=0.54, speed=0.25)
+    config = Config({"stereo_depth_inferior_limit": 2.0, "stereo_depth_superior_limit": 50.0,
+                     "detect_mask_half": 6, "gftt_min_distance": 6, "ba_mode": "async"})
+    vo = VisualOdometry(config=config, dataset=ds)
+    assert vo.init()
+    ab = vo.async_backend
+    assert ab.ba_device is None or torch.cuda.device_count() > 1
+    vo.run()
+    torch.cuda.synchronize()
+    assert (vo.statuses() == 1).all() and ab.stats["merged"] == ab.stats["dispatched"] == len(solves) >= 2
+    assert len(threads) == 1 and threads[0] != threading.get_ident()
+    for wmap, out in solves:
+        inline = backend.solve_window(ab.cfg, ab.rig, wmap, ab.ba_cfg)
+        for name in ("poses", "points", "out_l", "out_r"):
+            assert torch.equal(getattr(out, name), getattr(inline, name)), name
+        assert torch.equal(out.stats.chi, inline.stats.chi) and torch.equal(out.stats.lam, inline.stats.lam)
+        assert (out.stats.iterations, out.stats.attempts) == (inline.stats.iterations, inline.stats.attempts)
+    assert len(threads) == 1  # the inline solves replayed the worker's graphs

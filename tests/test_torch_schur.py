@@ -29,6 +29,7 @@ from legoslam_tpu.solver import robust as j_robust
 from legoslam_tpu.solver import schur as j_schur
 from legoslam_tpu_torch.geometry import se3
 from legoslam_tpu_torch.solver import lm, reprojection, robust, schur
+from tests.lm_bits import assert_same_lm_bits, lm_both_ways, pose_prior
 from tests.test_edge_soa import random_graph
 from tests.torch_parity import j, t, to_numpy
 
@@ -212,3 +213,26 @@ def test_unknown_engine_raises(problem):
     graph, poses, points, port_graph = problem
     with pytest.raises(ValueError, match="lm_engine"):
         lm.solve_ba(port_graph, t(poses), t(points), engine="dense")
+
+
+@pytest.mark.parametrize("prior", [False, True])
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("strategy", ["default", "strategy1"])
+def test_device_select_matches_the_eager_loop(problem, strategy, precision, prior):
+    """Window BA's LM attempt with the accept decision on the device
+    (`lm.lm_select`: both branches, one kept by `torch.where`), in
+    `lm.lm_run`'s loop, gives `lm.lm_optimize`'s bits: poses, points, chi,
+    lambda, the trace, iterations and attempts, with the padded fixed-order
+    sums a card takes and with `index_add_`'s, with and without a pose
+    prior.  Twenty iterations and a stop rule that never fires, so rejected
+    attempts (rollbacks, and outer iterations ended by ten of them) are
+    among them."""
+    graph, poses, points, g = problem
+    cfg = lm.LMConfig(iterations=20, strategy=strategy, assembly_precision=precision, trace=True,
+                      diff_chi_threshold=-1.0)
+    prior_t = lm.ba_prior(pose_prior(t(poses), 3)) if prior else None
+    for order in (None, schur.build_order(g, poses.shape[0], points.shape[0])):
+        fns = lm.ba_functions(g, order, prior_t, robust.HUBER, DELTA, cfg)
+        eager, select = lm_both_ways(fns, lm.BAState(t(poses), t(points)), cfg)
+        assert_same_lm_bits(eager, select)
+        assert eager.iterations == 20 and eager.attempts > 20

@@ -220,3 +220,56 @@ def test_profile_flag_writes_a_trace(tmp_path):
     for bad in ("5", "a:b", "4:4"):
         with pytest.raises(SystemExit):
             _common._profile_window(bad)
+
+
+def test_window_ba_on_a_cpu_runs_op_by_op(monkeypatch):
+    """`lm.solve_ba` on CPU tensors runs `lm.lm_optimize` and never reaches
+    the CUDA graph path (solver/ba_graph.py): under a profiler every LM
+    attempt of window BA is a `lm_attempt` span with `graph` 0 holding its
+    `lm_step` and `lm_assemble`, and no `lm_capture` span is recorded."""
+    from legoslam_tpu_torch.solver import ba_graph
+
+    def refuse(*a, **kw):
+        raise AssertionError("a CPU solve reached the CUDA graph path")
+
+    monkeypatch.setattr(ba_graph, "solve", refuse)
+    vo = _vo()
+    assert vo.step()
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert vo.step() and vo.step()
+    record = timer.records()
+    kids = _children(record)
+    by_id = {s.id: s for s in record}
+    attempts = [s for s in record if s.name == "lm_attempt" and by_id[by_id[s.parent].parent].name == "ba"]
+    assert attempts and sum(int(o.ba.attempts) for o in vo.outputs[1:]) == len(attempts)
+    for a in attempts:
+        assert a.attrs["graph"] == 0
+        assert [c.name for c in kids[a.id]] == ["lm_step", "lm_assemble", "read"]
+    assert not any(s.name == "lm_capture" for s in record)
+
+
+@pytest.mark.parametrize("graphs, share", [((1, 1, 1), 1.0), ((1, 0, 1, 1), 0.75), ((0, 0), 0.0), ((), None)])
+def test_lm_graph_share_reads_the_attempts_graph_attribute(monkeypatch, graphs, share):
+    """portbench/metrics/lm_graph_share.py on a made-up record: window BA's
+    `lm_attempt` spans with `graph` 1 over all of them; an attempt outside
+    window BA (the plain pose solve) and spans outside the traced frames
+    are left out; nothing to read where the attempts carry no `graph`
+    attribute (a program from before the graphs) or there are none."""
+    import types
+
+    from portbench.harness import reader
+
+    t0 = 10_000_000_000
+    spans = [timer.Span("frame", 0, -1, 1, 0, {"branch": "keyframe"}, t0, t0 + 900, 0),
+             timer.Span("ba", 1, 0, 1, 0, {}, t0 + 10, t0 + 800, 0),
+             timer.Span("lm_solve", 2, 1, 1, 0, {}, t0 + 20, t0 + 700, 0),
+             timer.Span("lm_attempt", 3, 0, 1, 0, {"attempt": 0, "graph": 0}, t0 + 850, t0 + 860, 0),
+             timer.Span("lm_attempt", 4, -1, 1, 5, {"attempt": 0, "graph": 0}, t0 + 2000, t0 + 2100, 0)]
+    spans += [timer.Span("lm_attempt", 10 + k, 2, 1, 0, {"attempt": k, "graph": g}, t0 + 30 + 10 * k,
+                         t0 + 35 + 10 * k, 0) for k, g in enumerate(graphs)]
+    ctx = types.SimpleNamespace(frames=[{"start": 1e-9 * t0, "done": 1e-9 * (t0 + 1000)}])
+    monkeypatch.setattr(timer, "records", lambda: list(spans))
+    assert reader("lm_graph_share")(ctx) == share
+    for s in spans[5:]:
+        s.attrs.pop("graph")
+    assert reader("lm_graph_share")(ctx) is None
