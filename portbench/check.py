@@ -17,6 +17,9 @@ The numbers compared (each the largest over the run's samples):
   the problem it was handed, relative to the cost of the reference's own
   answer, so a window that BA did not move, or moved the wrong way, reads
   high whatever the port reports of itself.
+A configuration's stage files (`stages/<name>.py`, see hooks.py) add the
+numbers their `replay` gives from the calls kept in the window
+(`replay_stages`); `NAMES` holds these beside the ones above.
 The limits are the configuration file's ("limits"), set in PERF.md from
 the program's readings over many seeds and the control's; a number with
 no limit there (ba_pose and ba_lm_m: the control does not separate from
@@ -26,12 +29,36 @@ not compared.
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Mapping, Optional
+import importlib.util
+from pathlib import Path
+from typing import Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
-NAMES = ("track_px", "track_lanes", "pose_T", "pose_lanes", "kf_px", "kf_lanes", "kf_lm_m",
-         "ba_pose", "ba_lm_m", "ba_chi")
+FRAME_NAMES = ("track_px", "track_lanes", "pose_T", "pose_lanes", "kf_px", "kf_lanes", "kf_lm_m",
+               "ba_pose", "ba_lm_m", "ba_chi")
+STAGES_DIR = Path(__file__).resolve().parent / "stages"
+
+
+def load_stage(name: str, root: Path = STAGES_DIR):
+    """The stage file `<root>/<name>.py` as a module."""
+    path = Path(root) / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no stage file {path}")
+    spec = importlib.util.spec_from_file_location(f"portbench.stages.{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def stage_names(root: Path = STAGES_DIR) -> Tuple[str, ...]:
+    """The numbers the stage files under `root` give (each file's GAPS)."""
+    root = Path(root)
+    files = sorted(p.stem for p in root.glob("*.py") if not p.stem.startswith("_")) if root.is_dir() else []
+    return tuple(n for f in files for n in load_stage(f, root).GAPS)
+
+
+NAMES = FRAME_NAMES + stage_names()
 
 
 def _max_gap(a, b, mask) -> float:
@@ -135,6 +162,16 @@ def replay(ref, rec: Mapping, frames_l, frames_r, control=None) -> Dict[str, flo
         # Each answer judged by the reference's cost on the problem it was given.
         gaps.update(ba_gaps(wmap_b, ref.cost(wmap_in, wmap_b), wmap_r, chi_r))
     return gaps
+
+
+def replay_stages(stages: Sequence, kept: Mapping[str, List], ctx, control=None) -> Dict[str, float]:
+    """The gaps of the stage files' kept calls (`kept`: tag to the calls
+    kept in the window, as NumPy), each file's `replay` handed its own
+    tags; the worst where two files give one name.  A file whose calls
+    never came gives what its `replay` makes of none (nothing read, so a
+    limit on it is not met)."""
+    return worst(st.replay({tag: kept.get(tag, []) for _, _, tag in st.WRAP}, ctx, control=control)
+                 for st in stages)
 
 
 def worst(per_sample: Iterable[Mapping[str, float]]) -> Dict[str, float]:

@@ -33,7 +33,7 @@ def main(argv=None) -> int:
     p.add_argument("--seeds", required=True)
     p.add_argument("--seconds", type=float, required=True)
     args = p.parse_args(argv)
-    from portbench import check, harness
+    from portbench import harness
 
     cell = harness.Cell(harness.load_benchmark(ROOT), args.workload)
     import torch
@@ -47,7 +47,7 @@ def main(argv=None) -> int:
         res = harness.run_cell(cell, seed, args.seconds, False, "cuda", time.perf_counter(),
                                log=lambda m: print(m, file=sys.stderr, flush=True), control=True)
         print(json.dumps({"workload": args.workload, "seed": seed, "correct": res["correct"],
-                          "program": check.worst(res["per_sample"]), "control": res["control"],
+                          "program": res["gaps"], "control": res["control"],
                           "samples": len(res["per_sample"]), "values": res["values"]}), flush=True)
     return 0
 

@@ -4,7 +4,9 @@ per-layer metrics, and the comparison with the reference.
 Everything that belongs to a configuration, a traffic mix or a per-layer
 metric is a file of its own, found by the names in BENCHMARK.json:
 `configs/<config>.json` (as the cell's configuration entry names it),
-`traffic/<traffic>.json`, and `metrics/<metric>.py` with a `read(ctx)`.
+`traffic/<traffic>.json`, and `metrics/<metric>.py` with a `read(ctx)`;
+and the stage files a configuration names (`"stages"`), `stages/<name>.py`
+(hooks.py says what one declares).
 """
 
 from __future__ import annotations
@@ -17,9 +19,12 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from types import SimpleNamespace
 from typing import Dict, List, Optional
 
 import numpy as np
+
+from portbench import check
 
 ROOT = Path(__file__).resolve().parent.parent
 HERE = Path(__file__).resolve().parent
@@ -66,10 +71,45 @@ def forbidden_modules() -> List[str]:
     return sorted(m for m in list(sys.modules) if m.split(".")[0] in FORBIDDEN)
 
 
+def warmup_floor(cell: Cell) -> int:
+    """The frames the warm-up runs at least: up to the course's first
+    revisit, so a lap's window and traced slice start at a revisit (0 on a
+    forward course: today's rule alone)."""
+    from portbench.world.course import first_revisit
+
+    return first_revisit(cell.traffic["drive"], float(cell.config["speed_m_per_frame"]))
+
+
 def frames_to_render(cell: Cell, seconds: float) -> int:
     t = cell.traffic
-    return min(int(cell.config["sequence_frames"]),
-               int(t["warmup_max_frames"]) + int(math.ceil(float(t["max_frames_per_s"]) * seconds)) + 1)
+    warm = int(t["warmup_max_frames"]) + warmup_floor(cell)
+    return min(int(cell.config["sequence_frames"]), warm + int(math.ceil(float(t["max_frames_per_s"]) * seconds)) + 1)
+
+
+def warm_up(vo, hooks, traffic: dict, n_active: int, samples: list, floor: int = 0) -> int:
+    """The set-up's frames; returns how many ran.  Frame 0's stereo
+    bootstrap is a sample (the start); then frames run until a keyframe
+    frame once the keyframe window is full and one keyframe has evicted
+    another, and at least `floor` frames have run (`warmup_floor`).  More
+    than `warmup_max_frames` past that floor is an error."""
+    limit = int(traffic["warmup_max_frames"]) + floor
+    warm, full = 0, False
+    while True:
+        hooks.record = {} if warm == 0 else None
+        if not vo.step():
+            raise RuntimeError("the course ran out of frames in the warm-up")
+        if warm == 0:
+            samples.append(hooks.record)
+        hooks.record = None
+        warm += 1
+        out = vo.outputs[-1]
+        if out.kf_inserted:
+            if full and warm >= floor:
+                break
+            full = full or int(vo.carry.wmap.num_keyframes()) >= n_active
+        if warm >= limit:
+            raise RuntimeError(f"the keyframe window did not fill in {warm} frames")
+    return warm
 
 
 def sample_plan(cell: Cell, seed: int, seconds: float, cap: Optional[int] = None):
@@ -99,17 +139,17 @@ def _record_to_numpy(rec: dict) -> dict:
 
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
              t_start: Optional[float] = None, out_dir: Optional[Path] = None, log=print,
-             control: bool = False) -> dict:
+             control: bool = False, stage_dir: Path = check.STAGES_DIR) -> dict:
     """One run; returns the result line's fields and the numbers compared.
     With `control`, also the control's numbers (the reference in TF32 in
-    the port's place, `reference.lowp`) on the same samples."""
+    the port's place, `reference.lowp`) on the same samples.  The
+    configuration's stage files are read from `stage_dir`."""
     t_start = time.perf_counter() if t_start is None else t_start
     import torch
 
     from legoslam_tpu_torch.pipeline.visual_odometry import VisualOdometry
     from legoslam_tpu_torch.utils.config import Config
-    from portbench import check
-    from portbench.hooks import Hooks
+    from portbench.hooks import Hooks, as_data
     from portbench.reference.stages import Reference, to_numpy
     from portbench.stats import ate_rmse, latencies, percentile
     from portbench.world.source import DriveSource
@@ -136,7 +176,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "
     parts["build_and_render"] = time.perf_counter() - t
 
     t = time.perf_counter()
-    hooks = Hooks().install()
+    stages = [check.load_stage(name, stage_dir) for name in cfg.get("stages", ())]
+    hooks = Hooks(stages).install()
     settings = cfg["settings"]
     vo = VisualOdometry(config=Config(settings), dataset=source, device=dev)
     if not vo.init():
@@ -150,25 +191,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "
             (torch.ones(8, device=dev) * 2).sum().item()
         prof = profile(activities=acts)
     samples = []
-    # Warm-up: frame 0's stereo bootstrap is a sample (the start), then
-    # until the keyframe window is full and one keyframe has evicted another.
-    n_active = int(settings["num_active_keyframes"])
-    warm, full = 0, False
-    while True:
-        hooks.record = {} if warm == 0 else None
-        if not vo.step():
-            raise RuntimeError("the course ran out of frames in the warm-up")
-        if warm == 0:
-            samples.append(hooks.record)
-        hooks.record = None
-        warm += 1
-        out = vo.outputs[-1]
-        if out.kf_inserted:
-            if full:
-                break
-            full = int(vo.carry.wmap.num_keyframes()) >= n_active
-        if warm >= int(traffic["warmup_max_frames"]):
-            raise RuntimeError(f"the keyframe window did not fill in {warm} frames")
+    warm = warm_up(vo, hooks, traffic, int(settings["num_active_keyframes"]), samples, warmup_floor(cell))
     # The set-up's garbage is collected and what survives it is frozen, so
     # no collection in the window walks the set-up's objects.
     gc.collect()
@@ -190,6 +213,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "
     t0 = time.perf_counter() + (0.01 if open_loop else 0.0)
     prev_done = t0
     i = 0
+    hooks.kept = {}  # the stage files' calls in the window
     while True:
         if open_loop:
             due = t0 + i / rate
@@ -229,6 +253,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "
         prev_done = done
         i += 1
     window_s = rows[-1]["done"] - t0
+    kept, hooks.kept = hooks.kept, None
     if trace:
         prof.stop()
         hooks.spans = hooks.sync = False
@@ -282,6 +307,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "
     # --- correct: the reference on the samples, the port's state freed ---------
     gc.unfreeze()
     samples = [_record_to_numpy(r) for r in samples]
+    kept = {tag: [as_data(c) for c in calls] for tag, calls in kept.items()}
     hooks.remove()
     del vo
     if cuda:
@@ -290,9 +316,12 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "
     ref = Reference(settings, np.asarray(cfg["camera"]["P0"]).reshape(3, 4),
                     np.asarray(cfg["camera"]["P1"]).reshape(3, 4), float(cfg["camera"]["image_scale"]))
     per_sample = [check.replay(ref, s, source.left, source.right) for s in samples]
-    gaps = check.worst(per_sample)
+    stage_ctx = SimpleNamespace(settings=settings, camera=cfg["camera"], left=source.left, right=source.right,
+                                reference=ref)
+    gaps = check.worst(per_sample + [check.replay_stages(stages, kept, stage_ctx)])
     ok, rows_checked = check.verdict(gaps, cfg.get("limits", {}))
     stage_counts = {k: sum(k in s["stages"] for s in samples) for k in ("init", "track", "insert", "ba")}
+    stage_counts.update({f"kept {tag}": len(calls) for tag, calls in kept.items()})
     log(f"reference: {len(samples)} samples ({', '.join(f'{k} {v}' for k, v in stage_counts.items())}) in"
         f" {time.perf_counter() - t:.3f} s")
     control_gaps = None
@@ -301,7 +330,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "
 
         low = Control(Reference(settings, np.asarray(cfg["camera"]["P0"]).reshape(3, 4),
                                 np.asarray(cfg["camera"]["P1"]).reshape(3, 4), float(cfg["camera"]["image_scale"])))
-        control_gaps = check.worst(check.replay(ref, s, source.left, source.right, control=low) for s in samples)
+        control_gaps = check.worst([check.replay(ref, s, source.left, source.right, control=low) for s in samples]
+                                   + [check.replay_stages(stages, kept, stage_ctx, control=low)])
     return {"correct": ok and not found, "control": control_gaps, "attempted": len(rows), "failed": failed, "values": values,
             "per_layer": per_layer, "memory_peak": memory_peak, "device_extra": device_extra,
-            "breakdown": breakdown, "checks": rows_checked, "forbidden": found, "per_sample": per_sample}
+            "breakdown": breakdown, "checks": rows_checked, "forbidden": found, "per_sample": per_sample,
+            "gaps": gaps}

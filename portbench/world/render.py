@@ -1,21 +1,24 @@
-"""The corridor rendered on the device: a PyTorch rewrite of the port's
+"""The world rendered on the device: a PyTorch rewrite of the port's
 `SyntheticPlanesDataset` (pipeline/dataset.py), many frames per call.
 
-A ground plane y = ground_y, side walls x = +-half_width and an end wall
-z = length carry multi-octave value noise in world coordinates (scaled by
-3), occluders (scaled by 4) overwrite what lies behind them, and a pixel no
-surface covers is 12.  The intensity is 25 + 205 v with v in [0, 1], plus
-Gaussian sensor noise of `noise` grey levels, independent per frame and
-camera, rounded and clipped to 8 bits as a camera delivers it.  The noise's
-lattice hash is integer mixing, not the port's float sin hash, so the
-texture differs from the port's renderer; its octaves, scales and
-smoothstep are the same.  Float32 throughout (a metre at 1.4 km from
+Two worlds (`planes`).  The corridor (a world with `half_width`): a ground
+plane y = ground_y, side walls x = +-half_width and an end wall z = length,
+open behind z_min.  The walled box (a world with `x_min`): the ground, four
+walls x = x_min, x = x_max, z = z_max and the back wall z = z_min, so a
+camera facing any way sees a wall.  The surfaces carry multi-octave value
+noise in world coordinates (scaled by 3), occluders (scaled by 4) overwrite
+what lies behind them, and a pixel no surface covers is 12.  The intensity
+is 25 + 205 v with v in [0, 1], plus Gaussian sensor noise of `noise` grey
+levels, independent per frame and camera, rounded and clipped to 8 bits as
+a camera delivers it.  The noise's lattice hash is integer mixing, not the
+port's float sin hash, so the texture differs from the port's renderer; its
+octaves, scales and smoothstep are the same.  Float32 throughout (a metre at 1.4 km from
 the start is resolved to 0.1 mm), on any device.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +67,44 @@ def _texture(pa: torch.Tensor, pb: torch.Tensor, keys: torch.Tensor, surface: to
     return out
 
 
+def planes(world: dict) -> List[Tuple[int, float, Tuple[int, int], int]]:
+    """(axis, offset, texture axes, salt) of each surface x[axis] = offset,
+    in the order they are tested."""
+    gy = world["ground_y"]
+    if "x_min" in world:
+        return [(1, gy, (0, 2), 11), (0, world["x_min"], (2, 1), 23), (0, world["x_max"], (2, 1), 37),
+                (2, world["z_max"], (0, 1), 53), (2, world["z_min"], (0, 1), 59)]
+    hw = world["half_width"]
+    return [(1, gy, (0, 2), 11), (0, -hw, (2, 1), 23), (0, hw, (2, 1), 37), (2, world["length"], (0, 1), 53)]
+
+
+def _inside(world: dict, pts: torch.Tensor) -> torch.Tensor:
+    """Where the points (..., 3) lie on the world's surfaces: within the
+    box's walls, or the corridor's, and not below the ground."""
+    x, y, z = pts[..., 0], pts[..., 1], pts[..., 2]
+    if "x_min" in world:
+        e = 1e-3
+        return ((x >= world["x_min"] - e) & (x <= world["x_max"] + e) & (z >= world["z_min"] - e)
+                & (z <= world["z_max"] + e) & (y <= world["ground_y"] + e))
+    return ((z > world["z_min"]) & (z < world["length"] + 1e-3) & (x.abs() <= world["half_width"] + 1e-3)
+            & (y <= world["ground_y"] + 1e-3))
+
+
+def _in_front(origin: torch.Tensor, R: torch.Tensor, occ: Sequence) -> List[bool]:
+    """For each occluder, whether some camera (`origin` (F, 3), `R`
+    (F, 3, 3)) has some corner of it at a depth above -1 m along that
+    camera's own heading.  One that no camera has so lies behind them all:
+    no pixel's ray meets it at a positive depth, so skipping it changes no
+    pixel."""
+    if not occ:
+        return []
+    corners = torch.tensor([[(xc + sx * w / 2, yc + sy * h / 2, zc) for sx in (-1, 1) for sy in (-1, 1)]
+                            for xc, yc, zc, w, h, _ in occ], dtype=origin.dtype, device=origin.device)
+    heading = R[:, :, 2]  # (F, 3): each camera's optical axis in the world
+    depth = torch.einsum("nkj,fj->nkf", corners, heading) - (origin * heading).sum(-1)
+    return (depth.amax(dim=(1, 2)) >= -1.0).tolist()
+
+
 def _render(origin: torch.Tensor, R: torch.Tensor, uv: torch.Tensor, world: dict, occ, seed: int) -> torch.Tensor:
     """Intensities (F, H, W) of cameras at `origin` (F, 3) with
     world-from-camera rotations `R` (F, 3, 3); `uv` (H, W, 3) are the pixel
@@ -75,16 +116,13 @@ def _render(origin: torch.Tensor, R: torch.Tensor, uv: torch.Tensor, world: dict
     best = torch.full(d.shape[:3], float("inf"), dtype=d.dtype, device=d.device)
     surface = torch.zeros(d.shape[:3], dtype=torch.int64, device=d.device)
     ta_c, tb_c = torch.zeros_like(best), torch.zeros_like(best)
-    hw, gy, length, z_min = world["half_width"], world["ground_y"], world["length"], world["z_min"]
-    planes = ((1, gy, (0, 2), 11), (0, -hw, (2, 1), 23), (0, hw, (2, 1), 37), (2, length, (0, 1), 53))
     salts = []
-    for axis, offset, (ta, tb), salt in planes:
+    for axis, offset, (ta, tb), salt in planes(world):
         dn = d[..., axis]
         t = torch.where(dn.abs() > 1e-9, (offset - o[..., axis]) / torch.where(dn.abs() > 1e-9, dn, 1.0),
                         float("inf"))
         pts = o + t[..., None] * d
-        ok = (t > 0.05) & (t < best) & (pts[..., 2] > z_min) & (pts[..., 2] < length + 1e-3)
-        ok &= (pts[..., 0].abs() <= hw + 1e-3) & (pts[..., 1] <= gy + 1e-3)
+        ok = (t > 0.05) & (t < best) & _inside(world, pts)
         best = torch.where(ok, t, best)
         surface = torch.where(ok, len(salts), surface)
         ta_c = torch.where(ok, pts[..., ta] * 3.0, ta_c)
@@ -92,9 +130,8 @@ def _render(origin: torch.Tensor, R: torch.Tensor, uv: torch.Tensor, world: dict
         salts.append(salt)
     dz = d[..., 2]
     safe_dz = torch.where(dz.abs() > 1e-9, dz, 1.0)
-    z_near = float(origin[:, 2].min())
-    for xc, yc, zc, w, h, salt in occ:
-        if zc < z_near - 1.0:  # behind every camera of the chunk
+    for (xc, yc, zc, w, h, salt), seen in zip(occ, _in_front(origin, R, occ)):
+        if not seen:
             continue
         t = torch.where(dz.abs() > 1e-9, (zc - o[..., 2]) / safe_dz, float("inf"))
         px, py = o[..., 0] + t * d[..., 0], o[..., 1] + t * d[..., 1]

@@ -17,8 +17,37 @@ import numpy as np
 from portbench.world import course, render
 
 
+def world_of(drive: dict, T_wc: np.ndarray) -> dict:
+    """The world of the traffic file's drive table around the course
+    `T_wc`: for the lap, a box whose four walls stand `wall_margin_m`
+    beyond the course's extent in x and z; for a forward course, the
+    corridor, whose end wall stands `far_wall_beyond_m` past the last
+    pose."""
+    gy = float(drive["ground_y_m"])
+    if (drive["course"] == "lap") != ("wall_margin_m" in drive):
+        raise ValueError("`wall_margin_m` sizes the lap's box, and only the lap's")
+    if drive["course"] == "lap":
+        m = float(drive["wall_margin_m"])
+        xs, zs = T_wc[:, 0, 3], T_wc[:, 2, 3]
+        return {"ground_y": gy, "x_min": float(xs.min()) - m, "x_max": float(xs.max()) + m,
+                "z_min": float(zs.min()) - m, "z_max": float(zs.max()) + m}
+    return {"half_width": float(drive["half_width_m"]), "ground_y": gy, "z_min": float(drive["z_min_m"]),
+            "length": float(T_wc[-1, 2, 3]) + float(drive["far_wall_beyond_m"])}
+
+
+def occluders_of(drive: dict, T_wc: np.ndarray, world: dict, seed: int) -> list:
+    """The occluders of the drive table's world: over a box's floor clear
+    of the course as a path (`occluders_per_m2`), or along the corridor
+    clear of the course's side (`occluders_per_m`)."""
+    clearance = float(drive["occluder_clearance_m"])
+    if "x_min" in world:
+        return course.box_occluders(T_wc, seed, float(drive["occluders_per_m2"]), clearance, world)
+    return course.occluders(T_wc, seed, float(drive["occluders_per_m"]), clearance, world["half_width"],
+                            world["ground_y"])
+
+
 class DriveSource:
-    """`n` frames at `speed` m/frame of the corridor drive described by `drive` (the traffic
+    """`n` frames at `speed` m/frame of the drive described by `drive` (the traffic
     file's "drive" table) at the camera of `camera` (the configuration
     file's "camera" table), rendered from `seed` on `device`."""
 
@@ -33,14 +62,10 @@ class DriveSource:
         self.P0, self.P1, self.scale = P0, P1, scale
         self.shape = (H, W)
         self.rig = StereoRig.from_kitti_projections(P0, P1, scale=scale)
-        self.ground_truth = course.poses(n, speed, drive["course"])
-        world = {"half_width": float(drive["half_width_m"]), "ground_y": float(drive["ground_y_m"]),
-                 "z_min": float(drive["z_min_m"]),
-                 "length": float(self.ground_truth[-1, 2, 3]) + float(drive["far_wall_beyond_m"])}
-        self.occluders = course.occluders(self.ground_truth, seed, float(drive["occluders_per_m"]),
-                                          float(drive["occluder_clearance_m"]), world["half_width"],
-                                          world["ground_y"])
-        self.left, self.right = render.render(self.ground_truth, (fx, fy, cx, cy), baseline, (H, W), world,
+        self.ground_truth = course.poses(n, speed, drive)
+        self.world = world_of(drive, self.ground_truth)
+        self.occluders = occluders_of(drive, self.ground_truth, self.world, seed)
+        self.left, self.right = render.render(self.ground_truth, (fx, fy, cx, cy), baseline, (H, W), self.world,
                                               self.occluders, seed, float(drive["photometric_noise"]), device)
         self.index = 0
 
