@@ -1287,20 +1287,18 @@ def run_slices(dev, kind, smi, klt_k, pose_k, frames, lap_frames, kitti_root, sc
             pending.append((pyr_j, pyr_i, uv_j.contiguous(), valid.contiguous()))
             return verify_device(pyr_j, pyr_i, uv_j, valid, *rest)
 
-        verify_poses, dispatch = [], pose_k.estimate_pose
+        verify_poses, dispatch = [], pose_k.verify_pose
 
         def capturing_pose(intr, T_init, p_world, uv, valid, verify_poses=verify_poses, **kw):
-            # the verification's K2 launches (the frontend's pass through)
-            if not kw.get("verification"):
-                return dispatch(intr, T_init, p_world, uv, valid, **kw)
+            # the verification's K2 launches (`verify_pose`, the verifier's own entry)
             att = torch.zeros((kw.get("outer_iterations", 4),), dtype=torch.int32, device=T_init.device)
             out = dispatch(intr, T_init, p_world, uv, valid, attempts=att, **kw)
-            verify_poses.append(((intr, T_init.clone(), p_world.clone(), uv.clone(), valid.clone()), kw,
-                                 tuple(o.clone() for o in out), att))
+            verify_poses.append(((intr, T_init.clone(), p_world.clone(), uv.clone(), valid.clone()),
+                                 dict(kw, verification=True), tuple(o.clone() for o in out), att))
             return out
 
         lc._verify, lc._verify_device, vo._register_keyframe = timed_verify, capturing_verify_device, counted_register
-        pose_k.estimate_pose = capturing_pose
+        pose_k.verify_pose = capturing_pose
         try:
             reset_counts()
             t0 = time.perf_counter()
@@ -1310,7 +1308,7 @@ def run_slices(dev, kind, smi, klt_k, pose_k, frames, lap_frames, kitti_root, sc
             dt = time.perf_counter() - t0
             counts = read_counts()
         finally:
-            pose_k.estimate_pose = dispatch
+            pose_k.verify_pose = dispatch
         est = vo.trajectory_T_wc()
         ids, kf_T_cw = vo.keyframe_trajectory()
         arms[zncc] = {

@@ -754,7 +754,7 @@ __device__ __forceinline__ void skip_pass(Shared& s, int pass) {
 }
 
 template <bool kGlobal>
-__global__ void __launch_bounds__(kThreads, 1) estimate_pose_kernel(
+__device__ __forceinline__ void estimate_pose_body(
     const float* __restrict__ T_init, const float* __restrict__ pw, const float* __restrict__ uv,
     const uint8_t* __restrict__ valid, int E, Intr k, LMParams prm, float* __restrict__ T_out,
     uint8_t* __restrict__ inlier, int* __restrict__ n_inliers, int* __restrict__ attempts_out,
@@ -1078,9 +1078,26 @@ __global__ void __launch_bounds__(kThreads, 1) estimate_pose_kernel(
   __syncthreads();
 }
 
+// Two entries of one body: tracking's and the loop verifier's
+// (`verification`), under names of their own, so a profiler's trace tells
+// the verifier's launches from tracking's.
+#define POSE_ENTRY(name)                                                                                    \
+  template <bool kGlobal>                                                                                   \
+  __global__ void __launch_bounds__(kThreads, 1) name(                                                      \
+      const float* __restrict__ T_init, const float* __restrict__ pw, const float* __restrict__ uv,         \
+      const uint8_t* __restrict__ valid, int E, Intr k, LMParams prm, float* __restrict__ T_out,            \
+      uint8_t* __restrict__ inlier, int* __restrict__ n_inliers, int* __restrict__ attempts_out,            \
+      uint8_t* __restrict__ flag_scratch) {                                                                 \
+    estimate_pose_body<kGlobal>(T_init, pw, uv, valid, E, k, prm, T_out, inlier, n_inliers, attempts_out,   \
+                                flag_scratch);                                                              \
+  }
+POSE_ENTRY(estimate_pose_kernel)
+POSE_ENTRY(loop_verify_pose_kernel)
+#undef POSE_ENTRY
+
 // Per device: the edges the shared copy holds, what the opt-in shared
-// memory per block leaves beside the static block and the ring; both
-// instantiations are allowed their dynamic shared memory once.
+// memory per block leaves beside the static block and the ring; each
+// entry's two instantiations are allowed their dynamic shared memory once.
 constexpr int kMaxDevices = 64;
 
 cudaError_t shared_edges(int* capacity) {
@@ -1095,14 +1112,23 @@ cudaError_t shared_edges(int* capacity) {
     cudaFuncAttributes fa;
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, estimate_pose_kernel<false>);
+    cudaFuncAttributes fv;
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&fv, loop_verify_pose_kernel<false>);
     if (err != cudaSuccess) return err;
-    const long dynamic = (long)optin - (long)fa.sharedSizeBytes;
+    const long dynamic = (long)optin - (long)(fa.sharedSizeBytes > fv.sharedSizeBytes ? fa.sharedSizeBytes
+                                                                                       : fv.sharedSizeBytes);
     const long room = ((dynamic - (long)kRingBytes) / 16) * 16;  // the edges are padded to 16 bytes
     if (room < 0) return cudaErrorInvalidConfiguration;
     err = cudaFuncSetAttribute(estimate_pose_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)dynamic);
     if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(loop_verify_pose_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)dynamic);
+    if (err == cudaSuccess)
       err = cudaFuncSetAttribute(estimate_pose_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)kRingBytes);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(loop_verify_pose_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  (int)kRingBytes);
     if (err != cudaSuccess) return err;
     cap[dev] = (int)(room / (long)kEdgeBytes);
@@ -1135,13 +1161,21 @@ extern "C" int legoslam_estimate_pose(const float* T_init, const float* p_world,
   const Intr k{fx, fy, cx, cy};
   LMParams prm{iterations, outer, drop_kernel_after, exclude_outliers, verification, strategy1,
                false_cnt_threshold, chi2_th, tau, max_diag_cap, diff_chi_threshold, init_lambda};
-  if (global) {
-    estimate_pose_kernel<true><<<1, kThreads, kRingBytes, (cudaStream_t)stream>>>(
-        T_init, p_world, uv, valid, E, k, prm, T_out, inlier, n_inliers, attempts, flag_scratch);
+  const size_t smem = global ? kRingBytes : ((E * kEdgeBytes + 15) / 16) * 16 + kRingBytes;
+  uint8_t* scratch = global ? flag_scratch : nullptr;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (verification && global) {
+    loop_verify_pose_kernel<true><<<1, kThreads, smem, st>>>(T_init, p_world, uv, valid, E, k, prm, T_out, inlier,
+                                                             n_inliers, attempts, scratch);
+  } else if (verification) {
+    loop_verify_pose_kernel<false><<<1, kThreads, smem, st>>>(T_init, p_world, uv, valid, E, k, prm, T_out,
+                                                              inlier, n_inliers, attempts, scratch);
+  } else if (global) {
+    estimate_pose_kernel<true><<<1, kThreads, smem, st>>>(T_init, p_world, uv, valid, E, k, prm, T_out, inlier,
+                                                          n_inliers, attempts, scratch);
   } else {
-    const size_t smem = ((E * kEdgeBytes + 15) / 16) * 16 + kRingBytes;
-    estimate_pose_kernel<false><<<1, kThreads, smem, (cudaStream_t)stream>>>(
-        T_init, p_world, uv, valid, E, k, prm, T_out, inlier, n_inliers, attempts, nullptr);
+    estimate_pose_kernel<false><<<1, kThreads, smem, st>>>(T_init, p_world, uv, valid, E, k, prm, T_out, inlier,
+                                                           n_inliers, attempts, scratch);
   }
   return (int)cudaGetLastError();
 }

@@ -7,6 +7,11 @@ PyTorch version.
 tensors, the plain version for CPU tensors, an exception otherwise.
 All three take an optional `attempts` tensor, (outer_iterations,) int32,
 which is filled with the LM attempts of each round (the work count).
+`verify_pose` is the loop closer's entry: `estimate_pose` with
+`verification`, picked by device in the same way but not through the
+attribute `estimate_pose`, so what wraps that attribute sees tracking's
+calls alone; on a card its launches carry the kernel's second name,
+`loop_verify_pose_kernel`.
 """
 
 from __future__ import annotations
@@ -114,12 +119,22 @@ def estimate_pose_kernel(
 estimate_pose_kernel.launches = 0
 
 
-def estimate_pose(intr, T_init, p_world, uv, valid, **kw):
-    """Dispatch on the device: the kernel for CUDA tensors, the plain version
-    for CPU tensors."""
+def _by_device(intr, T_init, p_world, uv, valid, **kw):
     kind = T_init.device.type
     if kind == "cuda":
         return estimate_pose_kernel(intr, T_init, p_world, uv, valid, **kw)
     if kind == "cpu":
         return estimate_pose_eager(intr, T_init, p_world, uv, valid, **kw)
     raise RuntimeError(f"estimate_pose has no path for {kind} tensors")
+
+
+def estimate_pose(intr, T_init, p_world, uv, valid, **kw):
+    """Dispatch on the device: the kernel for CUDA tensors, the plain version
+    for CPU tensors."""
+    return _by_device(intr, T_init, p_world, uv, valid, **kw)
+
+
+def verify_pose(intr, T_init, p_world, uv, valid, **kw):
+    """The loop verifier's pose: `estimate_pose(..., verification=True)`,
+    dispatched on the device without going through `estimate_pose`."""
+    return _by_device(intr, T_init, p_world, uv, valid, verification=True, **kw)

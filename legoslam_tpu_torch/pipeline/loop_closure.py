@@ -9,7 +9,8 @@ legoslam_tpu/pipeline/loop_closure.py).
   KLT-tracked into the new keyframe's image and back (frame-mode pyramid
   KLT, ops/klt.py: the CUDA kernel on the card) with forward-backward
   gating, then a motion-only pose solve (solver/lm.py estimate_pose's
-  verification rounds: the pose kernel on the card) against
+  verification rounds: kernels/pose.py `verify_pose`, the pose kernel's
+  verification entry on the card) against
   the candidate's stored landmark positions measures the loop transform;
   accept on inlier count.
 - **correction**: a pose graph over the keyframe trajectory, odometry edges
@@ -17,6 +18,12 @@ legoslam_tpu/pipeline/loop_closure.py).
   optimized on the host in float64 (solver/pose_graph_host.py), and the live
   world (current pose, window keyframes, landmarks) is re-anchored rigidly
   by the newest keyframe's correction.
+
+Under a profiler (utils/timer.py) `add_keyframe` records a `loop_detect`
+span (`candidates`), a `loop_verify` span for each candidate verified
+(`candidate`, `inliers`, `accepted`; its host reads are `read` spans of
+site `loop_verify`) and a `pose_graph` span round the solve (`records`,
+`loop_edges`, `dropped`).
 
 Precisions stay where the reference has them: records and the pose graph
 are float64 NumPy on the host, verification is float32 on `device`, and the
@@ -40,6 +47,7 @@ from legoslam_tpu_torch.ops import klt as klt_ops
 from legoslam_tpu_torch.ops import pyramid as pyr_ops
 from legoslam_tpu_torch.solver import lm as lm_ops
 from legoslam_tpu_torch.solver import pose_graph_host, reprojection
+from legoslam_tpu_torch.utils import timer
 from legoslam_tpu_torch.utils.logging import get_logger
 
 log = get_logger("legoslam.loop")
@@ -208,13 +216,17 @@ class LoopCloser:
         if self._cooldown > 0:
             self._cooldown -= 1
             return None
-        candidates = self._detect()
+        with timer.span("loop_detect") as sp:
+            candidates = self._detect()
+            sp.set(candidates=len(candidates))
         if not candidates:
             return None
         ok = False
         for j in candidates:
             self.stats["candidates"] += 1
-            ok, M_ij, n_in = self._verify(j)
+            with timer.span("loop_verify", candidate=j) as sp:
+                ok, M_ij, n_in = self._verify(j)
+                sp.set(inliers=int(n_in), accepted=int(ok))
             if ok:
                 break
             log.info("loop: candidate kf%d->kf%d rejected (%d inliers)",
@@ -227,7 +239,10 @@ class LoopCloser:
         _debug_dump("closure", dict(i=i, j=j, M=np.asarray(M_ij), n_in=n_in, fids=[r.frame_id for r in self.records],
                                     pre=np.stack([r.T_cw for r in self.records])))
         T_old_last = self.records[-1].T_cw.copy()
-        corrected, chi0, chi1, new_edge_rejected = self._optimize()
+        n_edges = len(self.loop_edges)
+        with timer.span("pose_graph", records=len(self.records), loop_edges=n_edges) as sp:
+            corrected, chi0, chi1, new_edge_rejected = self._optimize()
+            sp.set(dropped=n_edges - len(self.loop_edges))
         # Acceptance gates: the newest edge must have survived the solve's
         # outlier pass, and the solve must actually have absorbed the loop
         # residual (LoopConfig.pg_accept_chi_ratio).
@@ -288,9 +303,9 @@ class LoopCloser:
         uv_b, conv_b = klt_ops.klt_pyramid(pyr_i, pyr_j, uv_i, uv_i, valid, cfg.klt)
         fb_ok = torch.linalg.vector_norm(uv_b - uv_j, dim=-1) < cfg.fb_threshold
         ok = valid & conv & conv_b & fb_ok
-        T, _, n_in = pose_kernels.estimate_pose(
+        T, _, n_in = pose_kernels.verify_pose(
             self.intr, T_init, p_world, uv_i.contiguous(), ok, chi2_th=cfg.chi2_threshold, outer_iterations=4,
-            drop_kernel_after=3, cfg=lm_ops.LMConfig(iterations=10), verification=True)
+            drop_kernel_after=3, cfg=lm_ops.LMConfig(iterations=10))
         return T, n_in
 
     def _verify_fn(self, pyr_from, pyr_to, rec: KeyframeRecord) -> Tuple[np.ndarray, int]:
@@ -302,7 +317,8 @@ class LoopCloser:
             pyr_from, pyr_to, torch.from_numpy(rec.uv).to(dev), valid, torch.from_numpy(rec.p_world).to(dev),
             torch.from_numpy(rec.T_cw_obs.astype(np.float32)).to(dev),
         )
-        out = torch.cat([T.reshape(-1), n_in.to(T.dtype).reshape(1)]).cpu().numpy()
+        with timer.reading("loop_verify"):
+            out = torch.cat([T.reshape(-1), n_in.to(T.dtype).reshape(1)]).cpu().numpy()
         return out[:16].reshape(4, 4).astype(np.float64), int(out[16])
 
     def _verify(self, j: int) -> Tuple[bool, np.ndarray, int]:

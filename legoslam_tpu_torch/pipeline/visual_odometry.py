@@ -29,7 +29,10 @@ of the stream, and resets the closer when tracking is LOST; the hook keeps
 exactly that, with one device-to-host copy per registered keyframe.  A
 correction the closer returns is applied when the reference applies it:
 held, and applied to the carry after the next frame (the reference reads
-its keyframe snapshot one frame late), or at the end of the stream.
+its keyframe snapshot one frame late), or at the end of the stream.  Under
+a profiler a registration is a `loop` span (`records`, `closed`; the copy
+is a `read` of site `loop_register`) and an applied correction a
+`loop_apply` span.
 
 Around the frame step: `init()` reads `dataset_dir` as a KITTI sequence
 when no dataset is given, `save_checkpoint` / `load_checkpoint` write and
@@ -428,27 +431,32 @@ class VisualOdometry:
         """Hand the current carry's landmark-linked features to the loop
         closer as one keyframe record (one device-to-host copy) and, if a
         loop closes, hold the correction for `_apply_pending_correction`."""
-        feats, wmap = self.carry.feats, self.carry.wmap
-        M = feats.uv.shape[0]
-        sel = feats.valid & (feats.lm >= 0)
-        pw = wmap.lm_pos[torch.clamp(feats.lm, min=0).long()]
-        v = torch.cat([T_cw.reshape(-1), feats.uv.reshape(-1), sel.to(T_cw.dtype), pw.reshape(-1)]).cpu().numpy()
-        uv = v[16:16 + 2 * M].reshape(M, 2)
-        keep = v[16 + 2 * M:16 + 3 * M] > 0.5
-        p_world = v[16 + 3 * M:].reshape(M, 3)
-        result = self.loop_closer.add_keyframe(int(frame.frame_id), np.asarray(frame.left),
-                                               v[:16].reshape(4, 4), uv[keep], p_world[keep])
-        if result is not None:
-            self._pending_correction = torch.as_tensor(result[1], dtype=torch.float32).to(self.device)
+        with timer.span("loop", frame=int(frame.frame_id)) as sp:
+            feats, wmap = self.carry.feats, self.carry.wmap
+            M = feats.uv.shape[0]
+            sel = feats.valid & (feats.lm >= 0)
+            pw = wmap.lm_pos[torch.clamp(feats.lm, min=0).long()]
+            with timer.reading("loop_register"):
+                v = torch.cat([T_cw.reshape(-1), feats.uv.reshape(-1), sel.to(T_cw.dtype),
+                               pw.reshape(-1)]).cpu().numpy()
+            uv = v[16:16 + 2 * M].reshape(M, 2)
+            keep = v[16 + 2 * M:16 + 3 * M] > 0.5
+            p_world = v[16 + 3 * M:].reshape(M, 3)
+            result = self.loop_closer.add_keyframe(int(frame.frame_id), np.asarray(frame.left),
+                                                   v[:16].reshape(4, 4), uv[keep], p_world[keep])
+            if result is not None:
+                self._pending_correction = torch.as_tensor(result[1], dtype=torch.float32).to(self.device)
+            sp.set(records=len(self.loop_closer.records), closed=int(result is not None))
 
     def _apply_pending_correction(self) -> None:
         G, self._pending_correction = self._pending_correction, None
         if G is not None:
-            if self.async_backend is not None:
-                # A solve in flight was linearized in the old world frame:
-                # settle it before re-anchoring.
-                self.carry = self.carry.replace(wmap=self.async_backend.flush(self.carry.wmap))
-            self.carry = _apply_world_correction(self.carry, G)
+            with timer.span("loop_apply"):
+                if self.async_backend is not None:
+                    # A solve in flight was linearized in the old world frame:
+                    # settle it before re-anchoring.
+                    self.carry = self.carry.replace(wmap=self.async_backend.flush(self.carry.wmap))
+                self.carry = _apply_world_correction(self.carry, G)
 
     def _drain_hooks(self) -> None:
         """End of stream: a held correction is applied; the last frame's

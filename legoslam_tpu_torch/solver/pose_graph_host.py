@@ -25,6 +25,10 @@ from __future__ import annotations
 from typing import List, Sequence, Tuple
 
 import numpy as np
+# Imported with the module (which the loop closer imports when it is
+# built), not at the first closure, whose frame would pay for it.
+import scipy.sparse as sp
+import scipy.sparse.linalg as spla
 
 
 # ---------------------------------------------------------------------------
@@ -118,9 +122,6 @@ def solve_chain_graph(
     measured to sit in the correct basin while warm starts from previously
     corrected chains get stuck in theirs.
     """
-    import scipy.sparse as sp
-    import scipy.sparse.linalg as spla
-
     n = len(rel) + 1
     edges = [(k + 1, k, np.asarray(rel[k], np.float64), odom_weight, -1)
              for k in range(n - 1)]

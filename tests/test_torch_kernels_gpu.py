@@ -386,6 +386,43 @@ def test_pose_dispatch_picks_kernel_on_cuda(cuda):
     assert pose_k.estimate_pose_kernel.launches == n0 + 1
 
 
+@pytest.mark.parametrize("n", [256, 8192])
+def test_verify_pose_gives_the_bits_under_its_own_kernel_name(cuda, n):
+    """`verify_pose` (the loop verifier's entry) launches the pose kernel's
+    second entry, `loop_verify_pose_kernel`, and gives the plain version's
+    verification bits; tracking's `estimate_pose` still launches
+    `estimate_pose_kernel` with the bits it gave before.  A profiler tells
+    the two apart by name, and what wraps `estimate_pose` sees tracking's
+    call alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    intr, T, P, uv, valid = _pose_case(cuda, n=n)
+    kw = {"chi2_th": 5.991, "outer_iterations": 4, "drop_kernel_after": 3, "cfg": lm.LMConfig(iterations=10)}
+    seen = []
+    raw = pose_k.estimate_pose
+
+    def wrapped(*a, **k):
+        seen.append(k.get("verification", False))
+        return raw(*a, **k)
+
+    pose_k.estimate_pose = wrapped
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            v = pose_k.verify_pose(intr, T, P, uv, valid, **kw)
+            t = pose_k.estimate_pose(intr, T, P, uv, valid)
+            torch.cuda.synchronize()
+    finally:
+        pose_k.estimate_pose = raw
+    assert seen == [False]
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("loop_verify_pose_kernel" in x for x in names) == 1, names
+    assert sum("estimate_pose_kernel" in x for x in names) == 1, names
+    v_e = pose_k.estimate_pose_eager(intr, T, P, uv, valid, verification=True, **kw)
+    t_e = pose_k.estimate_pose_eager(intr, T, P, uv, valid)
+    for got, want in ((v, v_e), (t, t_e)):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 @pytest.mark.parametrize("linear_solver", ["cholesky", "pcg"])
 def test_ba_step_card_matches_cpu(cuda, monkeypatch, linear_solver):
     """`backend.ba_step` at the default capacities (K=16, L=2048, E=5120, 512
