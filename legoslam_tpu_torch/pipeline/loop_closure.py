@@ -23,7 +23,8 @@ Under a profiler (utils/timer.py) `add_keyframe` records a `loop_detect`
 span (`candidates`), a `loop_verify` span for each candidate verified
 (`candidate`, `inliers`, `accepted`; its host reads are `read` spans of
 site `loop_verify`) and a `pose_graph` span round the solve (`records`,
-`loop_edges`, `dropped`).
+`loop_edges`, `dropped`, and the solve's `factorizations` of its Hessian,
+1 or 2 after an outlier pass, and `edges`, those of its last solve).
 
 Precisions stay where the reference has them: records and the pose graph
 are float64 NumPy on the host, verification is float32 on `device`, and the
@@ -241,8 +242,9 @@ class LoopCloser:
         T_old_last = self.records[-1].T_cw.copy()
         n_edges = len(self.loop_edges)
         with timer.span("pose_graph", records=len(self.records), loop_edges=n_edges) as sp:
-            corrected, chi0, chi1, new_edge_rejected = self._optimize()
-            sp.set(dropped=n_edges - len(self.loop_edges))
+            solve = {}
+            corrected, chi0, chi1, new_edge_rejected = self._optimize(solve)
+            sp.set(dropped=n_edges - len(self.loop_edges), **solve)
         # Acceptance gates: the newest edge must have survived the solve's
         # outlier pass, and the solve must actually have absorbed the loop
         # residual (LoopConfig.pg_accept_chi_ratio).
@@ -375,7 +377,7 @@ class LoopCloser:
         return True, M, n_in
 
     # ------------------------------------------------------------------
-    def _optimize(self) -> Tuple[np.ndarray, float, float, bool]:
+    def _optimize(self, stats: Optional[dict] = None) -> Tuple[np.ndarray, float, float, bool]:
         """Pose graph over all stored keyframes: odometry + loop edges.
 
         The measurements are IMMUTABLE: odometry edges use each record's
@@ -389,7 +391,9 @@ class LoopCloser:
         the closure is rejected.
 
         Returns (corrected (n, 4, 4) f64, chi_before, chi_after,
-        new_edge_rejected); does NOT persist - the caller gates first."""
+        new_edge_rejected); does NOT persist - the caller gates first.
+        `stats` is handed to the solve, which fills it (its factorizations
+        and edges)."""
         n = len(self.records)
         rel = [self.records[k].rel_prev for k in range(1, n)]
         poses, chi0, chi1, dropped = pose_graph_host.solve_chain_graph(
@@ -398,6 +402,7 @@ class LoopCloser:
             odom_weight=self.cfg.odom_weight,
             loop_weight=self.cfg.loop_weight,
             iterations=self.cfg.pg_iterations,
+            stats=stats,
         )
         new_idx = len(self.loop_edges) - 1
         new_edge_rejected = new_idx in dropped

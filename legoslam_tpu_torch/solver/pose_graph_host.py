@@ -17,12 +17,17 @@ blocks).  Window BA stays on the device (solver/lm.py, solver/schur.py).
 Edge model: measurement M_ij ~= T_i T_j^-1 over camera-from-world poses,
 residual r = Log(M^-1 T_i T_j^-1), Jacobians J_i = Ad(M^-1), J_j = -I (exact
 for the left-multiplicative retraction up to the small-residual
-approximation, which GN re-linearizes away).
+approximation, which GN re-linearizes away).  These depend on the
+measurement alone, so H is assembled and factored once per solve and each
+Gauss-Newton iteration only solves its b against the factors; the per-edge
+work runs as array operations over all edges (`se3_logs`, `se3_exps`,
+`adjoints`, the stacked twins of the scalar helpers, which give their bits).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+import math
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 # Imported with the module (which the loop closer imports when it is
@@ -32,7 +37,9 @@ import scipy.sparse.linalg as spla
 
 
 # ---------------------------------------------------------------------------
-# f64 SE(3) (NumPy; geometry/se3.py works in float32 tensors)
+# f64 SE(3) (NumPy; geometry/se3.py works in float32 tensors), one pose at a
+# time: the JAX package's helpers, bit for bit, and the reference the tests
+# hold the stacked maps below to
 # ---------------------------------------------------------------------------
 
 def _hat(p: np.ndarray) -> np.ndarray:
@@ -95,8 +102,87 @@ def adjoint(T: np.ndarray) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
+# The same maps over stacks, one array operation for every edge: each
+# element takes the scalar helpers' operations in their order (products
+# through `@`, norms as sqrt of a dot), so a stack reads what a loop of the
+# helpers reads.
+# ---------------------------------------------------------------------------
+
+def _norms(v: np.ndarray) -> np.ndarray:
+    """(..., k) -> (...): np.linalg.norm of each vector (sqrt of its dot)."""
+    return np.sqrt((v[..., None, :] @ v[..., :, None])[..., 0, 0])
+
+
+def _pows(x: np.ndarray, k: int) -> np.ndarray:
+    """x**k by the C library's pow, as the scalar helpers' NumPy scalars take
+    it: NumPy's array power (and x*x) can round otherwise in the last place."""
+    return np.array([math.pow(v, k) for v in x.ravel()]).reshape(x.shape)
+
+
+def _hats(p: np.ndarray) -> np.ndarray:
+    z = np.zeros(p.shape[:-1])
+    x, y, w = p[..., 0], p[..., 1], p[..., 2]
+    return np.stack([np.stack([z, -w, y], -1),
+                     np.stack([w, z, -x], -1),
+                     np.stack([-y, x, z], -1)], -2)
+
+
+def so3_logs(R: np.ndarray) -> np.ndarray:
+    """(..., 3, 3) -> (..., 3), `so3_log` of each."""
+    c = np.clip((np.trace(R, axis1=-2, axis2=-1) - 1.0) / 2.0, -1.0, 1.0)
+    th = np.arccos(c)[..., None]
+    v = np.stack([R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0], R[..., 1, 0] - R[..., 0, 1]], -1)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return np.where(th < 1e-10, v / 2.0, th * v / (2.0 * np.sin(th)))
+
+
+def se3_logs(T: np.ndarray) -> np.ndarray:
+    """(..., 4, 4) -> (..., 6), `se3_log` of each."""
+    phi = so3_logs(T[..., :3, :3])
+    th = _norms(phi)[..., None, None]
+    K = _hats(phi)
+    Vinv = np.eye(3) - 0.5 * K
+    with np.errstate(divide="ignore", invalid="ignore"):
+        co = (1.0 - (th / 2.0) / np.tan(th / 2.0)) / _pows(th, 2)
+    Vinv = np.where(th < 1e-8, Vinv, Vinv + co * (K @ K))
+    return np.concatenate([(Vinv @ T[..., :3, 3:])[..., 0], phi], -1)
+
+
+def se3_exps(xi: np.ndarray) -> np.ndarray:
+    """(..., 6) -> (..., 4, 4), `se3_exp` of each."""
+    rho, phi = xi[..., :3], xi[..., 3:]
+    th = _norms(phi)[..., None, None]
+    K = _hats(phi)
+    KK = K @ K
+    with np.errstate(divide="ignore", invalid="ignore"):
+        a = np.sin(th) / th
+        b = (1.0 - np.cos(th)) / _pows(th, 2)
+        c = (th - np.sin(th)) / _pows(th, 3)
+    small = th < 1e-8
+    R = np.where(small, np.eye(3) + K + 0.5 * KK, np.eye(3) + a * K + b * KK)
+    V = np.where(small, np.eye(3) + 0.5 * K + KK / 6.0, np.eye(3) + b * K + c * KK)
+    T = np.broadcast_to(np.eye(4), xi.shape[:-1] + (4, 4)).copy()
+    T[..., :3, :3] = R
+    T[..., :3, 3] = (V @ rho[..., None])[..., 0]
+    return T
+
+
+def adjoints(T: np.ndarray) -> np.ndarray:
+    """(..., 4, 4) -> (..., 6, 6), `adjoint` of each."""
+    R, t = T[..., :3, :3], T[..., :3, 3]
+    A = np.zeros(T.shape[:-2] + (6, 6))
+    A[..., :3, :3] = R
+    A[..., 3:, 3:] = R
+    A[..., :3, 3:] = _hats(t) @ R
+    return A
+
+
+# ---------------------------------------------------------------------------
 # Gauss-Newton over chain + loop edges
 # ---------------------------------------------------------------------------
+
+_U, _V = np.divmod(np.arange(36), 6)  # a 6x6 block's entries, row by row
+
 
 def solve_chain_graph(
     rel: Sequence[np.ndarray],
@@ -106,6 +192,8 @@ def solve_chain_graph(
     loop_weight: float = 20.0,
     iterations: int = 3,
     outlier_residual: float = 0.5,
+    *,
+    stats: Optional[dict] = None,
 ) -> Tuple[np.ndarray, float, float, List[int]]:
     """Optimize a keyframe chain with loop closures, f64, deterministic.
 
@@ -116,18 +204,26 @@ def solve_chain_graph(
       translation exceeds this (meters) is dropped and the solve repeats
       once without it (a verified-but-wrong closure must not bend the
       chain; genuine post-solve loop residuals are ~measurement noise).
+    stats: if given, filled with `factorizations` (SuperLU factorizations
+      made: 1, or 2 after an outlier pass) and `edges` (the edges of the
+      last solve).
 
     Returns (poses (n,4,4) f64, chi_before, chi_after, dropped_edge_idx).
     The init is ALWAYS the odometry integration — deterministic, and
     measured to sit in the correct basin while warm starts from previously
     corrected chains get stuck in theirs.
+
+    Every edge is one row of the arrays below.  H and b are assembled in
+    the order of a loop over the edges, so that their duplicate entries sum
+    in that order; H once per solve, b in every iteration.
     """
     n = len(rel) + 1
-    edges = [(k + 1, k, np.asarray(rel[k], np.float64), odom_weight, -1)
-             for k in range(n - 1)]
-    edges += [(int(i), int(j), np.asarray(M, np.float64), loop_weight, idx)
-              for idx, (i, j, M) in enumerate(loop_edges)]
-    dropped: List[int] = []
+    edge_i = np.concatenate([np.arange(1, n), np.array([e[0] for e in loop_edges], int)])
+    edge_j = np.concatenate([np.arange(n - 1), np.array([e[1] for e in loop_edges], int)])
+    edge_M = np.concatenate([np.asarray(rel, np.float64).reshape(-1, 4, 4),
+                             np.asarray([e[2] for e in loop_edges], np.float64).reshape(-1, 4, 4)])
+    edge_w = np.concatenate([np.full(n - 1, float(odom_weight)), np.full(len(loop_edges), float(loop_weight))])
+    factorizations = 0
 
     def integrate() -> np.ndarray:
         P = np.empty((n, 4, 4))
@@ -136,63 +232,61 @@ def solve_chain_graph(
             P[k + 1] = rel[k] @ P[k]
         return P
 
-    def chi_of(P, active) -> float:
-        c = 0.0
-        for (i, j, M, w, _) in active:
-            r = se3_log(np.linalg.inv(M) @ P[i] @ np.linalg.inv(P[j]))
-            c += w * float(r @ r)
-        return 0.5 * c
+    def residuals(P, e, Minv):
+        return se3_logs(Minv @ P[edge_i[e]] @ np.linalg.inv(P[edge_j[e]]))
 
-    def gn(active):
+    def chi_of(w, r) -> float:
+        # 0.5 (w_0 r_0.r_0 + w_1 r_1.r_1 + ...), summed in edge order
+        terms = w * (r[:, None, :] @ r[:, :, None])[:, 0, 0]
+        return 0.5 * float(np.cumsum(np.concatenate([[0.0], terms]))[-1])
+
+    def gn(e):
+        nonlocal factorizations
+        i, j, w = edge_i[e], edge_j[e], edge_w[e]
+        Minv = np.linalg.inv(edge_M[e])
+        Ji = adjoints(Minv)
+        Jit = np.swapaxes(Ji, -1, -2)
+        # H's blocks (i,i), (j,j), (i,j), (j,i) of each edge, record 0's left
+        # out, then the gauge block (0,0); each block's 36 entries row by row
+        blocks = np.stack([w[:, None, None] * (Jit @ Ji), w[:, None, None] * np.eye(6),
+                           -w[:, None, None] * Jit, -w[:, None, None] * Ji], 1)
+        at = np.stack([np.stack([i, i], -1), np.stack([j, j], -1),
+                       np.stack([i, j], -1), np.stack([j, i], -1)], 1)
+        both = (i != 0) & (j != 0)
+        keep = np.stack([i != 0, j != 0, both, both], 1)
+        at = np.concatenate([at[keep], [[0, 0]]])
+        vals = np.concatenate([blocks[keep].reshape(-1), np.eye(6).reshape(-1)])
+        rows = (6 * at[:, :1] + _U).reshape(-1)
+        cols = (6 * at[:, 1:] + _V).reshape(-1)
+        H = sp.csc_matrix((vals, (rows, cols)), shape=(6 * n, 6 * n))
+        lu = spla.splu(H + 1e-9 * sp.identity(6 * n, format="csc"))
+        factorizations += 1
+        # b's parts, -w Ji^T r at i and w r (= -w Jj^T r) at j, added in
+        # the loop's order: edge by edge, each edge's i part then its j part
+        bi = np.stack([i, j], 1)
+        bkeep = bi != 0
+
         P = integrate()
-        chi0 = chi_of(P, active)
-        Minv_adj = {id(e): adjoint(np.linalg.inv(e[2])) for e in active}
+        r = residuals(P, e, Minv)
+        chi0 = chi_of(w, r)
         for _ in range(iterations):
-            rows, cols, vals = [], [], []
-            b = np.zeros(6 * n)
+            parts = np.stack([-w[:, None] * (Jit @ r[:, :, None])[..., 0], w[:, None] * r], 1)
+            b = np.zeros((n, 6))
+            np.add.at(b, bi[bkeep], parts[bkeep])
+            dx = lu.solve(b.reshape(-1)).reshape(n, 6)
+            P[1:] = se3_exps(dx[1:]) @ P[1:]
+            r = residuals(P, e, Minv)
+        return P, chi0, chi_of(w, r), r
 
-            def add_block(a, c, B):
-                r0, c0 = 6 * a, 6 * c
-                for u in range(6):
-                    for v in range(6):
-                        rows.append(r0 + u)
-                        cols.append(c0 + v)
-                        vals.append(B[u, v])
-
-            for e in active:
-                i, j, M, w, _ = e
-                r = se3_log(np.linalg.inv(M) @ P[i] @ np.linalg.inv(P[j]))
-                Ji = Minv_adj[id(e)]
-                # Jj = -I
-                if i != 0:
-                    b[6 * i:6 * i + 6] += -w * (Ji.T @ r)
-                    add_block(i, i, w * (Ji.T @ Ji))
-                if j != 0:
-                    b[6 * j:6 * j + 6] += w * r          # -w * Jj^T r
-                    add_block(j, j, w * np.eye(6))
-                if i != 0 and j != 0:
-                    add_block(i, j, -w * Ji.T)
-                    add_block(j, i, -w * Ji)
-            add_block(0, 0, np.eye(6))  # gauge
-            H = sp.csc_matrix(
-                (vals, (rows, cols)), shape=(6 * n, 6 * n)
-            )
-            dx = spla.spsolve(H + 1e-9 * sp.identity(6 * n, format="csc"), b)
-            for k in range(1, n):
-                P[k] = se3_exp(dx[6 * k:6 * k + 6]) @ P[k]
-        return P, chi0, chi_of(P, active)
-
-    P, chi0, chi1 = gn(edges)
-    # One outlier-rejection pass over loop edges.
-    bad = []
-    for (i, j, M, w, idx) in edges:
-        if idx < 0:
-            continue
-        r = se3_log(np.linalg.inv(M) @ P[i] @ np.linalg.inv(P[j]))
-        if np.linalg.norm(r[:3]) > outlier_residual:
-            bad.append(idx)
+    edges = np.arange(len(edge_i))
+    P, chi0, chi1, r = gn(edges)
+    # One outlier-rejection pass over loop edges (rows n-1... of r).
+    bad = [int(k) for k in np.flatnonzero(_norms(r[n - 1:, :3]) > outlier_residual)]
+    dropped: List[int] = []
     if bad and len(bad) < len(loop_edges):
         dropped = bad
-        active = [e for e in edges if e[4] not in bad]
-        P, chi0, chi1 = gn(active)
+        edges = np.delete(edges, n - 1 + np.asarray(bad))
+        P, chi0, chi1, _ = gn(edges)
+    if stats is not None:
+        stats.update(factorizations=factorizations, edges=len(edges))
     return P, chi0, chi1, dropped

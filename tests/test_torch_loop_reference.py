@@ -14,7 +14,11 @@ on the CPU at small sizes:
 - the stage file's replay (portbench/stages/loop.py) reads the port's
   kept calls within the configuration's limits, and at the cell's scale
   (320 records) a float32 pose graph in the port's place breaks `pg_T`'s
-  limit.
+  limit;
+- the pose graph's stacked SE(3) maps give the scalar helpers' bits, and
+  at the cell's scale (400 records, 30 loop edges, with and without a
+  gross outlier edge) the array solve agrees with the JAX package's loop
+  over the edges within 1e-9 m and 1e-9 of chi, and drops the same edges.
 The verifier's pose goes through `kernels.pose.verify_pose`, which the
 benchmark's hook on `estimate_pose` does not see: a verification logs no
 `k2` call, and both entries give the plain version's bits."""
@@ -186,6 +190,50 @@ def test_a_float32_pose_graph_breaks_the_limit():
     assert gaps["pg_T"] <= LIMITS["pg_T"] and gaps["pg_chi"] <= LIMITS["pg_chi"], gaps
     low = stage.pose_graph_gaps(call, ref_loop.DEFAULTS, control=True)
     assert low["pg_T"] > LIMITS["pg_T"], low
+
+
+def test_stacked_se3_maps_give_the_scalar_helpers_bits():
+    rng = np.random.default_rng(8)
+    xi = rng.normal(0, 0.3, (300, 6)) * rng.choice([1e-12, 1e-6, 1.0, 10.0], (300, 1))
+    xi[:4, 3:] = 0.0  # no rotation: the small-angle branches
+    T = pose_graph_host.se3_exps(xi)
+    np.testing.assert_array_equal(T, np.stack([pose_graph_host.se3_exp(x) for x in xi]))
+    T = T @ T[::-1]
+    np.testing.assert_array_equal(pose_graph_host.se3_logs(T), np.stack([pose_graph_host.se3_log(x) for x in T]))
+    np.testing.assert_array_equal(pose_graph_host.adjoints(T), np.stack([pose_graph_host.adjoint(x) for x in T]))
+
+
+def _lap_chain(seed, outlier, n=400, L=312, n_loops=30):
+    """A lap of `n` records at 1.5 m a keyframe, drifting 1 cm and 0.5 mrad a
+    step, closed onto its first lap by `n_loops` loop edges; with `outlier`,
+    one more edge 40 m and 5 degrees off."""
+    rng = np.random.default_rng(seed)
+    truth = [np.eye(4)]
+    for k in range(n - 1):
+        turn = _yaw_pose(90.0 / 8 if (k % (L // 4)) >= L // 4 - 8 else 0.0, [0.0, 0.0, 0.0])
+        truth.append(turn @ _yaw_pose(0.0, [0.0, 0.0, -1.5]) @ truth[-1])
+    rel = [_se3_random(rng, 1, 0.01, 0.0005)[0] @ truth[k + 1] @ np.linalg.inv(truth[k]) for k in range(n - 1)]
+    edges = [(L + d, d, _se3_random(rng, 1, 0.02, 0.001)[0] @ truth[L + d] @ np.linalg.inv(truth[d]))
+             for d in np.linspace(0, n - 1 - L, n_loops).astype(int)]
+    if outlier:
+        edges.append((n - 2, 5, _yaw_pose(5.0, [40.0, 0.0, 0.0]) @ truth[n - 2] @ np.linalg.inv(truth[5])))
+    return rel, edges, truth[0]
+
+
+@pytest.mark.parametrize("outlier", [False, True])
+def test_pose_graph_at_the_cells_scale_against_the_jax_package(outlier):
+    from legoslam_tpu.solver import pose_graph_host as j_pgh
+
+    rel, edges, anchor = _lap_chain(7, outlier)
+    kw = dict(anchor=anchor, odom_weight=1.0, loop_weight=20.0, iterations=4)
+    stats = {}
+    P, chi0, chi1, dropped = pose_graph_host.solve_chain_graph(rel, edges, **kw, stats=stats)
+    P_r, chi0_r, chi1_r, dropped_r = j_pgh.solve_chain_graph(rel, edges, **kw)
+    assert np.linalg.norm(stage._centres(P) - stage._centres(P_r), axis=-1).max() <= 1e-9
+    assert chi0 == pytest.approx(chi0_r, rel=1e-9) and chi1 == pytest.approx(chi1_r, rel=1e-9)
+    assert dropped == dropped_r == ([len(edges) - 1] if outlier else [])  # the outlier alone
+    assert chi1 < 1e-3 * chi0
+    assert stats == {"factorizations": 1 + outlier, "edges": len(rel) + len(edges) - outlier}
 
 
 # --- the closer ------------------------------------------------------------------------

@@ -6,9 +6,12 @@ span for each registered keyframe (`records`, `closed`, its copy a `read`
 of site `loop_register`), the closer a `loop_detect` span (`candidates`),
 a `loop_verify` span for each candidate (`candidate`, `inliers`,
 `accepted`; its reads of site `loop_verify`), a `pose_graph` span for each
-solve (`records`, `loop_edges`, `dropped`), and `VisualOdometry` a `loop_apply`
-span for each correction it applies; the benchmark's loop readers take
-them.  With no profiler nothing is recorded.
+solve (`records`, `loop_edges`, `dropped`, `factorizations`, `edges`), and
+`VisualOdometry` a `loop_apply` span for each correction it applies; the
+benchmark's loop readers take them.  The solve factors its Hessian once, or
+twice where its outlier pass drops an edge, which the span's
+`factorizations` counts as SuperLU's factorizations do.  With no profiler
+nothing is recorded.
 
 There is no card here, so each `loop_verify` read's synchronization is
 simulated by the warning CUDA's sync debug mode raises for one."""
@@ -17,13 +20,17 @@ import contextlib
 import types
 import warnings
 
+import numpy as np
 import pytest
 from torch.profiler import ProfilerActivity, profile
 
+from legoslam_tpu_torch.pipeline import loop_closure
 from legoslam_tpu_torch.pipeline.dataset import SyntheticPlanesDataset
+from legoslam_tpu_torch.solver import pose_graph_host
 from legoslam_tpu_torch.pipeline.visual_odometry import VisualOdometry
 from legoslam_tpu_torch.utils import timer
 from legoslam_tpu_torch.utils.config import Config
+from tests.test_torch_loop_reference import _lap_chain
 from tests.test_torch_vo import OVERRIDES
 
 SYNC = "called a synchronizing CUDA operation"
@@ -109,6 +116,48 @@ def test_the_closer_records_its_spans(traced):
     assert len(applies) == closer.stats["closures"]
     for a in applies:  # each correction is applied after the registration that found it
         assert any(s.attrs["closed"] and s.t1_ns <= a.t0_ns for s in loops)
+
+
+def test_each_drive_solve_factors_once(traced):
+    record, closer = traced
+    graphs = _named(record, "pose_graph")
+    assert graphs
+    for s in graphs:  # no outlier drops on the drive: one factorization, every edge
+        assert s.attrs["factorizations"] == 1
+        assert s.attrs["edges"] == s.attrs["records"] - 1 + s.attrs["loop_edges"]
+
+
+@pytest.mark.parametrize("outlier", [False, True])
+def test_the_pose_graph_span_counts_factorizations(outlier, monkeypatch):
+    """tests/test_torch_loop_reference.py's 400-record lap through
+    `add_keyframe`, its last keyframe closed by the lap's last loop edge
+    onto the closer's 29 others; with `outlier`, the closer also holds one
+    40 m and 5 degrees off, which the solve's outlier pass drops before it
+    solves again."""
+    rel, edges, anchor = _lap_chain(7, outlier)
+    if outlier:  # the outlier among the edges held, the closing edge last
+        edges = edges[:-2] + edges[-1:] + edges[-2:-1]
+    T_cw = [anchor]
+    for r in rel:
+        T_cw.append(r @ T_cw[-1])
+    n, (_, j, M) = len(T_cw), edges[-1]
+    closer = loop_closure.LoopCloser(SyntheticPlanesDataset(n_frames=1, shape=(40, 60)).rig,
+                                     loop_closure.LoopConfig(), device="cpu")
+    closer.loop_edges = list(edges[:-1])
+    monkeypatch.setattr(closer, "_detect", lambda: [j] if len(closer.records) == n else [])
+    monkeypatch.setattr(closer, "_verify", lambda _: (True, M, 100))
+    real, calls = pose_graph_host.spla.splu, []
+    monkeypatch.setattr(pose_graph_host.spla, "splu", lambda A: calls.append(1) or real(A))
+    img = np.zeros((40, 60), np.float32)
+    with profile(activities=[ProfilerActivity.CPU]):
+        for k in range(n):
+            out = closer.add_keyframe(k, img, T_cw[k], np.zeros((0, 2)), np.zeros((0, 3)))
+        record = timer.records()
+    assert out is not None and closer.stats["closures"] == 1  # the closure was accepted
+    (span,) = _named(record, "pose_graph")
+    assert span.attrs["factorizations"] == len(calls) == (2 if outlier else 1)
+    assert span.attrs["dropped"] == (1 if outlier else 0)
+    assert span.attrs["edges"] == n - 1 + len(closer.loop_edges) == n - 1 + 30
 
 
 def test_the_loop_readers_read_the_record(traced, monkeypatch):
