@@ -139,8 +139,8 @@ def make_dist_solve_fn(mesh: Mesh, kernel: str = robust.HUBER, delta: float = 5.
                 return 0.5 * torch.dot(flat, lam * diag * flat + b)
             return 0.5 * torch.dot(flat, lam * flat + b)
 
-        fns = lm_ops.LMFunctions(build=None, chi=None, solve=solve_lin, retract=retract_fn, dot_scale=dot_scale,
-                                 max_diag=lambda aux: aux[1].abs().max(), chi_build=chi_build)
+        fns = lm_ops.LMFunctions(chi_build=chi_build, solve=solve_lin, retract=retract_fn, dot_scale=dot_scale,
+                                 max_diag=lambda aux: aux[1].abs().max())
         res = lm_ops.lm_optimize(fns, lm_ops.BAState(poses=poses, points=points_p), cfg)
         state = lm_ops.BAState(poses=res.state.poses, points=res.state.points[:L_orig])
         return state, res._replace(state=state)

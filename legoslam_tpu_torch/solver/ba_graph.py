@@ -10,7 +10,7 @@ products), one for an attempt (`lm.lm_select`), both over static
 buffers.  A solve copies its inputs into the buffers, replays the first
 graph, then the second once per attempt with a read of the flags after
 each (`lm.lm_run`), and hands back copies of the results.  The graphs run
-the kernels the eager loop runs, on the same data: the same bits.
+the kernels the same loop runs op by op, on the same data: the same bits.
 
 The signature is what capture bakes in: the inputs' device, dtypes and
 shapes (the order tables' widths among them), whether a prior is given,
@@ -19,9 +19,9 @@ kernel, delta and the LM settings an attempt reads.  Capture runs at a
 signature's first solve, on a side stream, with
 `capture_error_mode="thread_local"`, so the async backend's worker thread
 captures and replays while the frame loop's thread launches work.  Where
-capture raises, that signature solves op by op (`lm.lm_optimize`) from
-then on, with a warning naming the line, and its `lm_attempt` spans say
-`graph` 0.  A signature's buffers and graphs live as long as the process.
+capture raises, that signature runs the same loop op by op
+(`lm.lm_optimize`) from then on, with a warning naming the line, and its
+`lm_attempt` spans say `graph` 0.  A signature's buffers and graphs live as long as the process.
 """
 
 from __future__ import annotations

@@ -5,15 +5,15 @@
 `lego::Problem::solve` (problem.cpp:156-230): lambda from the Hessian
 diagonal, the Nielsen or "strategy1" schedule, the inner try-lambda loop
 with rollback (false-count threshold 10) and the chi-difference stop.  The
-reference expresses the loop as a `lax.while_loop`; here it is a Python loop
-over tensors, one lambda attempt per pass, with the same accept rule:
-rho > 0, predicted decrease > 0 and a finite candidate chi (lm.py:142).
-Each attempt reads two flags from the device in one transfer: whether it
+reference expresses the loop as a `lax.while_loop`; here it is one Python
+loop over tensors (`lm_run`), one lambda attempt per pass, with the same
+accept rule: rho > 0, predicted decrease > 0 and a finite candidate chi
+(lm.py:142).  Every solve takes the accept decision on the device
+(`lm_select`: both branches of the rule computed, one kept by
+`torch.where`) and reads two flags in one transfer per attempt: whether it
 was accepted, and whether it meets the stop rule if it ends an iteration.
-`lm_select` is the same attempt with the accept decision taken on the
-device (both branches, one kept by `torch.where`), the same bits, and
-`lm_run` the same loop over it, which window BA replays on a card as a
-CUDA graph (solver/ba_graph.py).
+Only window BA on a card replays that attempt as a CUDA graph
+(solver/ba_graph.py); everywhere else it runs op by op (`lm_optimize`).
 
 The pose path here is the plain PyTorch version; on CUDA tensors the
 pipeline runs the whole `estimate_pose` as one kernel (csrc/pose.cu via
@@ -61,22 +61,16 @@ class LMConfig(NamedTuple):
 
 
 class LMFunctions(NamedTuple):
-    """Problem callbacks: build(state) -> aux, chi(state) -> scalar
-    0.5*robust-chi2, solve(aux, lam) -> dx, retract(state, dx) -> state,
-    dot_scale(aux, dx, lam) -> denominator of rho, max_diag(aux) -> max |H_ii|.
+    """Problem callbacks: chi_build(state) -> (chi, aux), a state's
+    0.5*robust-chi2 and its assembly in one sweep (the reference's fused
+    path, lm.py:64-71), solve(aux, lam) -> dx, retract(state, dx) -> state,
+    dot_scale(aux, dx, lam) -> denominator of rho, max_diag(aux) -> max |H_ii|."""
 
-    chi_build(state) -> (chi, aux), where given, evaluates a candidate's chi
-    and its assembly in one sweep and keeps the assembly if the step is
-    accepted (the reference's fused path, lm.py:64-71); build and chi are
-    then not called."""
-
-    build: Optional[Callable[[Any], Any]]
-    chi: Optional[Callable[[Any], torch.Tensor]]
+    chi_build: Callable[[Any], Tuple[torch.Tensor, Any]]
     solve: Callable[[Any, torch.Tensor], Any]
     retract: Callable[[Any, Any], Any]
     dot_scale: Callable[[Any, Any, torch.Tensor], torch.Tensor]
     max_diag: Callable[[Any], torch.Tensor]
-    chi_build: Optional[Callable[[Any], Tuple[torch.Tensor, Any]]] = None
 
 
 class LMResult(NamedTuple):
@@ -86,33 +80,6 @@ class LMResult(NamedTuple):
     iterations: int
     attempts: int          # lambda attempts, one device read each
     trace: torch.Tensor    # (iterations, 2) [chi, lambda] per outer iteration if cfg.trace, else (0, 2)
-
-
-class _Outer:
-    """The host's side of the LM loop: outer iterations, rejections in a row
-    and the stop rule, from each attempt's two flags."""
-
-    def __init__(self, cfg: LMConfig):
-        self.cfg = cfg
-        self.it = self.false_cnt = self.attempts = 0
-        self.stop = False
-
-    @property
-    def running(self) -> bool:
-        return not self.stop and self.it < self.cfg.iterations
-
-    def after(self, accept: bool, stop_if_done: bool) -> bool:
-        """Count one attempt; whether it ended an outer iteration."""
-        false_n = 0 if accept else self.false_cnt + 1
-        outer_done = accept or false_n >= self.cfg.false_cnt_threshold
-        self.attempts += 1
-        if outer_done:
-            self.it += 1
-            self.stop = stop_if_done
-            self.false_cnt = 0
-        else:
-            self.false_cnt = false_n
-        return outer_done
 
 
 def _first_lambda(fns: LMFunctions, aux, cfg: LMConfig, scalar) -> torch.Tensor:
@@ -149,53 +116,6 @@ def _lam_rejected(lam, ni, cfg: LMConfig) -> torch.Tensor:
     return torch.clamp(lam * 11.0, max=1e7) if cfg.strategy == "strategy1" else lam * ni
 
 
-def lm_optimize(fns: LMFunctions, state0: Any, cfg: LMConfig) -> LMResult:
-    leaf = state0 if torch.is_tensor(state0) else state0[0]
-    dtype, device = leaf.dtype, leaf.device
-
-    def scalar(x):  # a fill, not a copy from the host, which would wait for the device
-        return torch.full((), x, dtype=dtype, device=device)
-
-    with timer.span("lm_assemble"):
-        if fns.chi_build is not None:
-            chi, aux = fns.chi_build(state0)
-        else:
-            aux = fns.build(state0)
-            chi = fns.chi(state0)
-    lam = _first_lambda(fns, aux, cfg, scalar)
-    state = state0
-    last_chi = scalar(1e20)
-    ni = scalar(2.0)
-    trace = torch.full((cfg.iterations if cfg.trace else 0, 2), torch.nan, dtype=dtype, device=device)
-    loop = _Outer(cfg)
-
-    while loop.running:
-        with timer.span("lm_attempt", attempt=loop.attempts, graph=0):
-            with timer.span("lm_step"):
-                dx = fns.solve(aux, lam)
-                cand = fns.retract(state, dx)
-            with timer.span("lm_assemble"):
-                if fns.chi_build is not None:
-                    temp_chi, aux_cand = fns.chi_build(cand)
-                else:
-                    temp_chi = fns.chi(cand)
-            accept_t, stop_t, rho_val = _verdict(fns, cfg, aux, dx, lam, chi, temp_chi, last_chi)
-            accept, stop_if_done = timer.read(torch.stack([accept_t, stop_t]), "lm_accept")
-            lam_used = lam
-            if accept:
-                lam, ni = _lam_accepted(lam, rho_val, cfg), scalar(2.0)
-                # Accepted steps re-linearize; rejected ones keep the blocks.
-                state, chi = cand, temp_chi
-                aux = aux_cand if fns.chi_build is not None else fns.build(cand)
-            else:
-                lam, ni = _lam_rejected(lam, ni, cfg), ni * 2.0
-        if loop.after(accept, stop_if_done):
-            if cfg.trace:
-                trace[loop.it - 1] = torch.stack([chi, lam_used])
-            last_chi = chi
-    return LMResult(state=state, chi=chi, lam=lam, iterations=loop.it, attempts=loop.attempts, trace=trace)
-
-
 class LMCarry(NamedTuple):
     """What an LM attempt hands the next, all on the device: the state with
     its chi and assembly, lambda and Nielsen's nu, the chi the last outer
@@ -221,10 +141,10 @@ def _where(cond: torch.Tensor, a, b):
 
 
 def lm_begin(fns: LMFunctions, state0: Any, cfg: LMConfig) -> LMCarry:
-    """`lm_optimize`'s start as a carry: the first fused assembly and lambda."""
+    """The first carry: the first fused assembly and lambda."""
     chi, aux = fns.chi_build(state0)
 
-    def scalar(x):
+    def scalar(x):  # a fill, not a copy from the host, which would wait for the device
         return torch.full((), x, dtype=chi.dtype, device=chi.device)
 
     lam = _first_lambda(fns, aux, cfg, scalar)
@@ -232,12 +152,12 @@ def lm_begin(fns: LMFunctions, state0: Any, cfg: LMConfig) -> LMCarry:
 
 
 def lm_select(fns: LMFunctions, c: LMCarry, cfg: LMConfig) -> Tuple[LMCarry, torch.Tensor]:
-    """One attempt of `lm_optimize` with its accept decision taken on the
-    device: both branches of the rule are computed by `lm_optimize`'s ops
-    and `torch.where` keeps the chosen one, so the same bits without a
-    read.  Returns the next carry (its `last_chi` the given one: the host
-    moves it when an outer iteration ends) and the flags [accept, stop]
-    for the host.  Needs `fns.chi_build`."""
+    """One LM attempt with its accept decision taken on the device: both
+    branches of the rule are computed and `torch.where` keeps the chosen
+    one, so the attempt reads nothing.  Accepted steps keep the candidate's
+    assembly (they re-linearize); rejected ones keep the blocks.  Returns
+    the next carry (its `last_chi` the given one: `lm_run` moves it when an
+    outer iteration ends) and the flags [accept, stop] for the host."""
     with timer.span("lm_step"):
         dx = fns.solve(c.aux, c.lam)
         cand = fns.retract(c.state, dx)
@@ -253,24 +173,35 @@ def lm_select(fns: LMFunctions, c: LMCarry, cfg: LMConfig) -> Tuple[LMCarry, tor
 
 def lm_run(begin: Callable[[], LMCarry], attempt: Callable[[LMCarry], Tuple[LMCarry, torch.Tensor]],
            cfg: LMConfig, graph: int) -> LMResult:
-    """`lm_optimize`'s loop over a carry the device keeps: `begin()` gives
-    the first carry and `attempt(c)` the next and its flags (`lm_begin`
-    and `lm_select`, or replays of them, solver/ba_graph.py), one read of
-    the flags an attempt.  `graph` marks the `lm_attempt` spans: 1 where
-    an attempt is a replay, 0 where it runs op by op."""
+    """The LM loop over a carry the device keeps: `begin()` gives the first
+    carry and `attempt(c)` the next and its flags (`lm_begin` and
+    `lm_select`, or replays of them, solver/ba_graph.py), one read of the
+    flags an attempt.  The host counts outer iterations and rejections in a
+    row from the flags and stops on the stop rule.  `graph` marks the
+    `lm_attempt` spans: 1 where an attempt is a replay, 0 where it runs op
+    by op."""
     with timer.span("lm_assemble"):
         c = begin()
-    loop = _Outer(cfg)
+    it = false_cnt = attempts = 0
+    stop = False
     trace = torch.full((cfg.iterations if cfg.trace else 0, 2), torch.nan, dtype=c.chi.dtype, device=c.chi.device)
-    while loop.running:
-        with timer.span("lm_attempt", attempt=loop.attempts, graph=graph):
+    while not stop and it < cfg.iterations:
+        with timer.span("lm_attempt", attempt=attempts, graph=graph):
             c, flags = attempt(c)
             accept, stop_if_done = timer.read(flags, "lm_accept")
-        if loop.after(accept, stop_if_done):
+        attempts += 1
+        false_cnt = 0 if accept else false_cnt + 1
+        if accept or false_cnt >= cfg.false_cnt_threshold:  # the outer iteration ends
+            it, stop, false_cnt = it + 1, stop_if_done, 0
             if cfg.trace:
-                trace[loop.it - 1] = torch.stack([c.chi, c.lam_used])
+                trace[it - 1] = torch.stack([c.chi, c.lam_used])
             c.last_chi.copy_(c.chi)
-    return LMResult(state=c.state, chi=c.chi, lam=c.lam, iterations=loop.it, attempts=loop.attempts, trace=trace)
+    return LMResult(state=c.state, chi=c.chi, lam=c.lam, iterations=it, attempts=attempts, trace=trace)
+
+
+def lm_optimize(fns: LMFunctions, state0: Any, cfg: LMConfig) -> LMResult:
+    """LM from `state0`, each attempt `lm_select` run op by op."""
+    return lm_run(lambda: lm_begin(fns, state0, cfg), lambda c: lm_select(fns, c, cfg), cfg, graph=0)
 
 
 # ---------------------------------------------------------------------------
@@ -340,8 +271,8 @@ def ba_functions(graph: schur.BAGraph, order: Optional[schur.BAOrder], prior, ke
     def max_diag(aux):
         return aux[1].abs().max()
 
-    return LMFunctions(build=None, chi=None, solve=solve_fn, retract=retract_fn, dot_scale=dot_scale,
-                       max_diag=max_diag, chi_build=chi_build)
+    return LMFunctions(chi_build=chi_build, solve=solve_fn, retract=retract_fn, dot_scale=dot_scale,
+                       max_diag=max_diag)
 
 
 def solve_ba(
@@ -364,9 +295,10 @@ def solve_ba(
     `schur.build_order`'s tables made once for the solve with one host read.
 
     On a card each attempt is a replay of a CUDA graph captured once per
-    shape (solver/ba_graph.py), with the same bits; on a CPU, and with
-    `linear_solver: pcg` (which reads the host every CG iteration), the
-    attempts run op by op in `lm_optimize`.
+    shape (solver/ba_graph.py), with the same bits; on a CPU, with
+    `linear_solver: pcg` (which reads the host every CG iteration), and
+    for a signature whose capture raised, the same loop runs its attempts
+    op by op (`lm_optimize`).
 
     pose_prior: optional (sqrt_J (6K, 6K), err0 (6K,), T_lin (K, 4, 4)), a
     linearized marginalization prior on the poses (problem.cpp:338-355) with
@@ -497,8 +429,8 @@ def solve_pose(
     def max_diag(aux):
         return torch.diagonal(aux[0]).abs().max()
 
-    fns = LMFunctions(build=None, chi=None, solve=solve_fn, retract=se3.retract,
-                      dot_scale=dot_scale, max_diag=max_diag, chi_build=chi_build)
+    fns = LMFunctions(chi_build=chi_build, solve=solve_fn, retract=se3.retract, dot_scale=dot_scale,
+                      max_diag=max_diag)
     res = lm_optimize(fns, T_init, cfg)
     return res.state, res
 

@@ -3,8 +3,9 @@ legoslam_tpu/solver/pose_graph.py).
 
 All relative-pose constraints are lanes of one batched residual and
 Jacobian computation; the dense (6N x 6N) normal equations are summed from
-the per-edge 6x6 blocks, and window BA's LM loop (solver/lm.py
-`lm_optimize`) runs the optimization.  The loop closer does not call this
+the per-edge 6x6 blocks, and the port's one LM loop (solver/lm.py
+`lm_optimize`, the accept decision taken on the device) runs the
+optimization, each attempt op by op.  The loop closer does not call this
 module: it solves its pose graph in float64 on the host
 (solver/pose_graph_host.py), as the reference's closer does.
 
@@ -159,8 +160,7 @@ def optimize(poses: torch.Tensor, graph: PoseGraph, kernel: str = robust.HUBER, 
         return 0.5 * torch.dot(flat, lam * flat + b)
 
     fns = lm_ops.LMFunctions(
-        build=lambda P: _build(graph, P, kernel, delta, order),
-        chi=lambda P: graph_chi(P, graph, kernel, delta),
+        chi_build=lambda P: (graph_chi(P, graph, kernel, delta), _build(graph, P, kernel, delta, order)),
         solve=solve_fn, retract=retract_fn, dot_scale=dot_scale,
         max_diag=lambda aux: torch.diagonal(aux[0]).abs().max(),
     )

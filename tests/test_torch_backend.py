@@ -331,8 +331,9 @@ def test_merge_ba_result_on_moved_map(ref):
 def test_device_select_matches_the_eager_loop_on_windows(ref, case, precision):
     """`solve_window`'s solve, the order tables at the widths it gives them
     (the sums a card takes), with the accept decision on the device
-    (`lm.lm_select` in `lm.lm_run`'s loop, the attempt the card replays as
-    a CUDA graph) gives `lm.lm_optimize`'s bits on the reference's maps
+    (`lm.lm_optimize`: `lm.lm_select` in `lm.lm_run`'s loop, the attempt
+    the card replays as a CUDA graph) gives the bits of the plain
+    host-decided loop (`tests/lm_bits.py` `host_decided_lm`) on the reference's maps
     (the first frame's and the four-keyframe window, perturbed, also with
     a pose prior) and on the KITTI soak's window before frame 25's BA."""
     if case == "kitti":
@@ -350,6 +351,6 @@ def test_device_select_matches_the_eager_loop_on_windows(ref, case, precision):
     prior = lm.ba_prior(pose_prior(p.poses, 5)) if case == "window_prior" else None
     lm_cfg = lm.LMConfig(assembly_precision=precision)
     fns = lm.ba_functions(p.graph, order, prior, robust.HUBER, 5.991, lm_cfg)
-    eager, select = lm_both_ways(fns, lm.BAState(p.poses, p.points), lm_cfg)
-    assert_same_lm_bits(eager, select)
-    assert eager.iterations >= 1
+    host, device = lm_both_ways(fns, lm.BAState(p.poses, p.points), lm_cfg)
+    assert_same_lm_bits(host, device)
+    assert host.iterations >= 1

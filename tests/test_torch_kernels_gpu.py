@@ -831,8 +831,9 @@ def _window_problem(window):
 @pytest.mark.parametrize("precision", ["bf16", "f32"])
 def test_ba_graph_gives_the_eager_loops_bits(cuda, full_windows, monkeypatch, precision, prior):
     """`lm.solve_ba` on the card, each LM attempt a replay of the captured
-    CUDA graph (solver/ba_graph.py), returns the eager `lm.lm_optimize`'s
-    poses, points, chi, lambda, iterations and attempts bit for bit on
+    CUDA graph (solver/ba_graph.py), returns the plain host-decided loop's
+    (tests/lm_bits.py `host_decided_lm`, op by op on the card) poses,
+    points, chi, lambda, iterations and attempts bit for bit on
     three full windows, at bf16 and f32 assembly, with and without a pose
     prior.  The signature is captured at its first solve and the other
     windows replay it without a new capture; a solve reads the host once
@@ -853,8 +854,8 @@ def test_ba_graph_gives_the_eager_loops_bits(cuda, full_windows, monkeypatch, pr
         (st, res), reads = timer.count_host_reads(lambda: lm.solve_ba(
             p.graph, p.poses, p.points, cfg=cfg, pose_prior=pose_prior, order=order))
         fns = lm.ba_functions(p.graph, order, lm.ba_prior(pose_prior) if prior else None, robust.HUBER, 5.991, cfg)
-        eager = lm.lm_optimize(fns, lm.BAState(p.poses, p.points), cfg)
-        bits.assert_same_lm_bits(res, eager)
+        host = bits.host_decided_lm(fns, lm.BAState(p.poses, p.points), cfg)
+        bits.assert_same_lm_bits(res, host)
         assert st is res.state and st.poses.is_cuda and res.attempts >= res.iterations >= 1
         assert reads == res.attempts, (reads, res.attempts)
         assert len(captures) == 1 and len(ba_graph._SOLVERS) == 1

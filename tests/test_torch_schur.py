@@ -29,7 +29,7 @@ from legoslam_tpu.solver import robust as j_robust
 from legoslam_tpu.solver import schur as j_schur
 from legoslam_tpu_torch.geometry import se3
 from legoslam_tpu_torch.solver import lm, reprojection, robust, schur
-from tests.lm_bits import assert_same_lm_bits, lm_both_ways, pose_prior
+from tests.lm_bits import assert_same_lm_bits, host_decided_lm, lm_both_ways, pose_prior
 from tests.test_edge_soa import random_graph
 from tests.torch_parity import j, t, to_numpy
 
@@ -192,12 +192,12 @@ def test_lm_rejects_non_pd_step():
     def residual(x):
         return A @ x - y
 
-    def build(x):
+    def chi_build(x):
         # The true Gauss-Newton Hessian A^T A, less 3 I: indefinite below lambda = 3.
-        return A.T @ A - 3.0 * torch.eye(2), -A.T @ residual(x)
+        return 0.5 * residual(x).square().sum(), (A.T @ A - 3.0 * torch.eye(2), -A.T @ residual(x))
 
     fns = lm.LMFunctions(
-        build=build, chi=lambda x: 0.5 * residual(x).square().sum(),
+        chi_build=chi_build,
         solve=lambda aux, lam: schur.damp_and_solve(aux[0], aux[1], lam),
         retract=lambda x, dx: x + torch.where(torch.isfinite(dx), dx, 0.0),
         dot_scale=lambda aux, dx, lam: 0.5 * torch.dot(dx, lam * dx + aux[1]),
@@ -219,10 +219,11 @@ def test_unknown_engine_raises(problem):
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
 @pytest.mark.parametrize("strategy", ["default", "strategy1"])
 def test_device_select_matches_the_eager_loop(problem, strategy, precision, prior):
-    """Window BA's LM attempt with the accept decision on the device
-    (`lm.lm_select`: both branches, one kept by `torch.where`), in
-    `lm.lm_run`'s loop, gives `lm.lm_optimize`'s bits: poses, points, chi,
-    lambda, the trace, iterations and attempts, with the padded fixed-order
+    """Window BA's LM loop, the accept decision on the device
+    (`lm.lm_optimize`: `lm.lm_select`, both branches, one kept by
+    `torch.where`, in `lm.lm_run`'s loop), gives the bits of the plain
+    host-decided loop (`tests/lm_bits.py` `host_decided_lm`): poses,
+    points, chi, lambda, the trace, iterations and attempts, with the padded fixed-order
     sums a card takes and with `index_add_`'s, with and without a pose
     prior.  Twenty iterations and a stop rule that never fires, so rejected
     attempts (rollbacks, and outer iterations ended by ten of them) are
@@ -233,6 +234,38 @@ def test_device_select_matches_the_eager_loop(problem, strategy, precision, prio
     prior_t = lm.ba_prior(pose_prior(t(poses), 3)) if prior else None
     for order in (None, schur.build_order(g, poses.shape[0], points.shape[0])):
         fns = lm.ba_functions(g, order, prior_t, robust.HUBER, DELTA, cfg)
-        eager, select = lm_both_ways(fns, lm.BAState(t(poses), t(points)), cfg)
-        assert_same_lm_bits(eager, select)
-        assert eager.iterations == 20 and eager.attempts > 20
+        host, device = lm_both_ways(fns, lm.BAState(t(poses), t(points)), cfg)
+        assert_same_lm_bits(host, device)
+        assert host.iterations == 20 and host.attempts > 20
+
+
+@pytest.mark.parametrize("strategy", ["default", "strategy1"])
+@pytest.mark.parametrize("solver", ["pose", "pose_graph"])
+def test_device_select_matches_the_eager_loop_in_pose_solves(monkeypatch, solver, strategy):
+    """The plain motion-only pose (`lm.solve_pose`, 512 edges, 40 of them
+    gross outliers) and the device pose graph (`pose_graph.optimize`, a
+    chain with a grossly wrong extra edge) run the port's one LM loop,
+    the accept decision on the device, and get the bits of the plain
+    host-decided loop (`tests/lm_bits.py` `host_decided_lm`): poses, chi,
+    lambda, iterations and attempts, rejected attempts among them."""
+    from legoslam_tpu_torch.solver import pose_graph
+    from tests.test_torch_pose import T_INTR, _problem
+    from tests.test_torch_pose_graph import _chain
+
+    optimize, runs = lm.lm_optimize, []
+
+    def both_ways(fns, state0, cfg):
+        runs.append((host_decided_lm(fns, state0, cfg), optimize(fns, state0, cfg)))
+        return runs[-1][1]
+
+    monkeypatch.setattr(lm, "lm_optimize", both_ways)
+    cfg = lm.LMConfig(strategy=strategy)
+    if solver == "pose":
+        T_prior, P, uv, valid, _ = _problem(7, n=512, outlier_frac=40 / 512)
+        lm.solve_pose(T_INTR, t(T_prior), t(P), t(uv), t(valid), cfg=cfg)
+    else:
+        _, est, g = _chain(0, n=16, bad_edge=True)
+        pose_graph.optimize(t(est), pose_graph.PoseGraph(**{k: t(v) for k, v in g.items()}), cfg=cfg._replace(iterations=15))
+    (host, device), = runs
+    assert_same_lm_bits(host, device)
+    assert host.attempts > host.iterations >= 1
