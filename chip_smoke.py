@@ -27,7 +27,12 @@
    are those of the pixels the lanes' windows touch, not whole pyramids),
    and median times from CUDA events (`device_ms`: the kernel's device time
    per launch; `wall_ms`: a whole call of the plain version, host syncs
-   included).
+   included).  Then scanline stereo (K3, csrc/stereo.cu) at kitti00's rig
+   (28 disparities) on 512 lanes of frame 0: the plain version's bits (uv_r,
+   ok), one launch and no host read, its device and wall time per call
+   against the plain version's wall time.  Every slice below counts K3's
+   launches too: one per keyframe on the default path, none under
+   `stereo_matcher: klt`.
 4. The BA-off slice: 40 frames of the plane-world benchmark sequence
    through `VisualOdometry(ba_mode="off")` on the card; every frame must
    track (TRACKING_GOOD), 7-9 keyframes, both kernels launched on every
@@ -333,6 +338,10 @@ WIDE_BENCH = {"a": {"klt_half_patch": 5, "max_features": 8192}, "b": {"klt_half_
 WIDE_KITTI = {"track_mode": "frame", "klt_pyramid_levels": 9, "image_scale": 1.0}
 WIDE_KITTI_FRAMES = 30
 MAIN_KERNELS = ("klt_pyramid_anchored", "estimate_pose")  # launched on every tracking frame of the default path
+# K3 at the kitti00 configuration's rig (portbench/configs/kitti00.json: f 359.428 px at half resolution, baseline
+# 0.5372 m, depth gates 8-200 m): 28 integer disparities, a strip of 36 columns.
+STEREO_FXB = 359.428 * 0.5372
+STEREO_DEPTHS = (8.0, 200.0)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -747,6 +756,59 @@ def hold_klt_anchored(frames, dev, klt_k, half_patch, kind, smi):
             "gn_lane_iterations": gn}
 
 
+def hold_stereo(frames, dev, kind, smi):
+    """K3 against its plain version at kitti00's rig on the bench world's
+    frame 0, 512 lanes from its corners: the plain version's bits, one
+    launch and no host read against the plain version's reads; the kernel's
+    device time and wall time per call against the plain version's wall
+    time; the bound of the cross-correlation's and window sums' work and of
+    the pixels the lanes' patches and strips touch."""
+    from legoslam_tpu_torch.kernels import stereo as stereo_k
+    from legoslam_tpu_torch.ops import detect
+
+    left = torch.from_numpy(frames[0][0]).to(dev)
+    right = torch.from_numpy(frames[0][1]).to(dev)
+    kp, ok = detect.detect(left, detect.GFTTConfig(max_corners=LANES, min_distance=4, border=8))
+    kp = kp.contiguous()
+    d_min, d_max = STEREO_FXB / STEREO_DEPTHS[1], STEREO_FXB / STEREO_DEPTHS[0]
+    cfg = stereo_k.ScanlineConfig()
+    args = ((left,), (right,), kp, ok, d_min, d_max, cfg)
+    n0 = stereo_k.match_kernel.launches
+    out_k, reads_k = count_host_reads(lambda: stereo_k.match_kernel(*args))
+    out_e, reads_e = count_host_reads(lambda: stereo_k.match_eager(*args))
+    torch.cuda.synchronize()
+    launched = stereo_k.match_kernel.launches - n0
+    err = float((out_k[0] - out_e[0]).abs().max())
+    check(same_bits(out_k[0], out_e[0]) and torch.equal(out_k[1], out_e[1]), "K3 stereo differs from its plain version")
+    check(launched == 1 and reads_k == 0, f"K3 stereo: {launched} launches and {reads_k} host reads, expected 1 and 0")
+    check(int(out_k[1].sum()) >= LANES // 8, f"K3 stereo matched only {int(out_k[1].sum())} lanes")
+    d_hi, D = stereo_k.disparities(d_min, d_max)
+    P = 2 * cfg.half_patch + 1
+    S = D + P + 1
+    n_valid = int(ok.sum())
+    # every lane (an invalid one has its outputs too): the cross term and window sums, a multiply and an add per
+    # patch pixel and disparity, two column sums and their scans per strip column; the GN iterations (at most 6
+    # a lane) are left out
+    flop = kp.shape[0] * (2 * D * P * P + 3 * S * P + 4 * S)
+    # the patch's pixels around kp, the strip's from kp - d_hi - h - 1 to kp - d_lo + h + 1 along x
+    xy = kp.cpu().numpy().astype(np.float64)
+    px = (touched_pixels(tuple(left.shape), xy, xy, cfg.half_patch)
+          + touched_pixels(tuple(right.shape), xy - [d_hi + 1, 0], xy - [d_hi - D, 0], cfg.half_patch))
+    nbytes = 4 * px + kp.numel() * 4 + ok.numel() + out_k[0].numel() * 4 + out_k[1].numel()
+    b_ms, b_kind = bound(flop, nbytes)
+    ms = device_ms(lambda: stereo_k.match_kernel(*args))
+    wall = wall_ms(lambda: stereo_k.match_kernel(*args), 50)
+    plain = wall_ms(lambda: stereo_k.match_eager(*args), 20)
+    print(f"K3 stereo: the plain version's bits on {kp.shape[0]} lanes of {tuple(left.shape)} at kitti00's rig "
+          f"(D {D}, strip {S} columns), matched {int(out_k[1].sum())} of {n_valid}; 1 launch and {reads_k} host reads "
+          f"a call, the plain version {reads_e} reads; kernel {ms:.5f} ms/launch (device), {wall:.4f} ms/call (wall); "
+          f"plain {plain:.4f} ms/call (wall); bound {b_ms:.6f} ms ({b_kind}: {flop / 1e6:.3f} MFLOP without the GN "
+          f"iterations, {nbytes / 1e6:.3f} MB) on {kind} ({smi})", flush=True)
+    return {"name": "stereo_match", "route": "cuda", "source": "legoslam_tpu_torch/csrc/stereo.cu",
+            "replaces": None, "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_kind,
+            "work": {"wall_ms": wall, "host_reads": reads_k, "plain_host_reads": reads_e, "disparities": D}}
+
+
 def hold_klt_frame_levels(kitti_root, dev, klt_k, kind, smi):
     """K1 in frame mode over WIDE_KITTI's levels of the KITTI sequence's
     frames 0 and 1 at 376x1240, 512 lanes from frame 0's corners: the plain
@@ -844,7 +906,7 @@ def main() -> None:
             gather = render_worlds(procs, workers)
             gather_kitti = start_soak_sequence(procs, workers, kitti_root, KITTI_FRAMES)
             with ThreadPoolExecutor() as pool:
-                for line in pool.map(build, ("klt_anchored", "pose")):
+                for line in pool.map(build, ("klt_anchored", "pose", "stereo")):
                     print(line, flush=True)
             worlds = gather()
             gather_kitti()
@@ -940,8 +1002,10 @@ def run_slices(dev, kind, smi, klt_k, pose_k, frames, lap_frames, kitti_root, sc
     results[2]["work"]["configs"] = pose_configs
     results[0]["work"]["configs"] = [hold_klt_anchored(frames, dev, klt_k, h, kind, smi) for h in KLT_WIDE_HALF_PATCHES]
     results[1]["work"]["configs"] = [hold_klt_frame_levels(kitti_root, dev, klt_k, kind, smi)]
+    results.append(hold_stereo(frames, dev, kind, smi))
 
     # --- 4. the BA-off slice -------------------------------------------------
+    from legoslam_tpu_torch.kernels import stereo as stereo_k
     from legoslam_tpu_torch.pipeline import backend
     from legoslam_tpu_torch.pipeline.state import Capacities
     from legoslam_tpu_torch.pipeline.visual_odometry import FrontendStatus, VisualOdometry
@@ -952,11 +1016,13 @@ def run_slices(dev, kind, smi, klt_k, pose_k, frames, lap_frames, kitti_root, sc
         klt_k.klt_pyramid_anchored_kernel.launches = 0
         klt_k.klt_pyramid_kernel.launches = 0
         pose_k.estimate_pose_kernel.launches = 0
+        stereo_k.match_kernel.launches = 0
 
     def read_counts():
         return {"klt_pyramid_anchored": klt_k.klt_pyramid_anchored_kernel.launches,
                 "klt_pyramid_frame": klt_k.klt_pyramid_kernel.launches,
-                "estimate_pose": pose_k.estimate_pose_kernel.launches}
+                "estimate_pose": pose_k.estimate_pose_kernel.launches,
+                "stereo_match": stereo_k.match_kernel.launches}
 
     config = Config({"stereo_depth_inferior_limit": 2.0, "stereo_depth_superior_limit": 60.0})
     vo = VisualOdometry(config=config, dataset=FrameList(frames, ds.rig), ba_mode="off")  # the card by default
@@ -986,6 +1052,8 @@ def run_slices(dev, kind, smi, klt_k, pose_k, frames, lap_frames, kitti_root, sc
     check(bool((statuses == FrontendStatus.TRACKING_GOOD).all()), "a frame did not track (BA off)")
     check(7 <= n_kf <= 9, f"{n_kf} keyframes, expected 7-9 (BA off)")
     check(all(launches_off[k] >= n_track for k in MAIN_KERNELS), "a kernel was not launched on every tracking frame")
+    check(launches_off["stereo_match"] == n_kf, f"{launches_off['stereo_match']} stereo launches, expected one a "
+                                                f"keyframe ({n_kf})")
     check(bool(np.isfinite(T_wc).all()), "non-finite trajectory (BA off)")
     check(ate < ATE_MAX, f"ATE {ate:.4f} m (BA off)")
 
@@ -1185,8 +1253,8 @@ def run_slices(dev, kind, smi, klt_k, pose_k, frames, lap_frames, kitti_root, sc
     check(bool((statuses[2:] == FrontendStatus.TRACKING_GOOD).all()), "not TRACKING_GOOD from frame 2 (reference modes)")
     check(launches_modes["klt_pyramid_frame"] == 2 * n_track + 2 * n_kf,
           f"{launches_modes['klt_pyramid_frame']} frame-mode launches, expected 2 per tracking frame and keyframe")
-    check(launches_modes["klt_pyramid_anchored"] == 0 and launches_modes["estimate_pose"] == n_track,
-          "the reference-mode slice launched the wrong kernels")
+    check(launches_modes["klt_pyramid_anchored"] == 0 and launches_modes["estimate_pose"] == n_track
+          and launches_modes["stereo_match"] == 0, "the reference-mode slice launched the wrong kernels")
     check(abs(n_kf - REF_MODES_KEYFRAMES) <= 1, f"{n_kf} keyframes, JAX reference {REF_MODES_KEYFRAMES}")
     check(bool(np.isfinite(T_wc).all()) and ate_modes < ATE_MAX_MODES, f"ATE {ate_modes:.4f} m (reference modes)")
     t0 = time.perf_counter()
@@ -1385,7 +1453,7 @@ def run_slices(dev, kind, smi, klt_k, pose_k, frames, lap_frames, kitti_root, sc
     results[2]["work"]["instantiations"] = {"edges in global memory": sum(sl["estimate_pose"]
                                                                           for sl in launches_wide[:-1])}
 
-    # library_ms: no single PyTorch call computes any of the three functions.
+    # library_ms: no single PyTorch call computes any of the four functions.
     slices = (launches_off, launches_inline, launches_inline2, launches_modes, launches_marg, arms[1.1]["launches"],
               closed["launches"], launches_kitti, *launches_more, *launches_wide)
     launches = {k: sum(sl[k] for sl in slices) for k in launches_off}

@@ -33,8 +33,9 @@ NVCC_FLAGS = [
 ]
 
 # Each kernel rounds as its plain version does, which contracts no
-# multiply-add (csrc/klt_anchored.cu asks for its one fused multiply-add).
-SOURCE_FLAGS = {"klt_anchored": ["-fmad=false"], "pose": ["-fmad=false"]}
+# multiply-add (csrc/klt_anchored.cu and csrc/stereo.cu ask for their one
+# fused multiply-add, the bilinear row pass on some image shapes).
+SOURCE_FLAGS = {"klt_anchored": ["-fmad=false"], "pose": ["-fmad=false"], "stereo": ["-fmad=false"]}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -22,6 +22,7 @@ import torch
 from legoslam_tpu_torch.geometry import se3, triangulation
 from legoslam_tpu_torch.geometry.camera import StereoRig
 from legoslam_tpu_torch.kernels import pose as pose_kernels
+from legoslam_tpu_torch.kernels import stereo as stereo_kernels
 from legoslam_tpu_torch.ops import detect as detect_ops
 from legoslam_tpu_torch.ops import klt as klt_ops
 from legoslam_tpu_torch.ops import stereo as stereo_ops
@@ -427,6 +428,17 @@ def _register_keyframe(wmap: WorldMap, feats: Features, born: torch.Tensor, T: t
     )
 
 
+def _stereo(cfg: FrontendConfig, rig: StereoRig, pyr_left, pyr_right, feats: Features, lm_pos: torch.Tensor,
+            T_cur: torch.Tensor) -> Features:
+    """`find_features_in_right` in the `stereo` span, whose `kernel` is 1
+    where csrc/stereo.cu matched (scanline stereo on a card), else 0."""
+    with timer.span("stereo") as sp:
+        n0 = stereo_kernels.match_kernel.launches
+        feats = find_features_in_right(cfg, rig, pyr_left, pyr_right, feats, lm_pos, T_cur)
+        sp.set(kernel=int(stereo_kernels.match_kernel.launches > n0))
+    return feats
+
+
 def insert_keyframe(
     cfg: FrontendConfig,
     rig: StereoRig,
@@ -446,8 +458,7 @@ def insert_keyframe(
     with timer.span("detect"):
         feats = detect_features(cfg, img_left, feats)
         feats = feats.replace(anchor=klt_ops.extract_anchors(pyr_left, feats.uv, cfg.klt), anchor_uv=feats.uv)
-    with timer.span("stereo"):
-        feats = find_features_in_right(cfg, rig, pyr_left, pyr_right, feats, wmap.lm_pos, T_cur)
+    feats = _stereo(cfg, rig, pyr_left, pyr_right, feats, wmap.lm_pos, T_cur)
     with timer.span("triangulate"):
         feats, wmap, born = triangulate_new_points(cfg, rig, feats, wmap, T_cur)
     with timer.span("register"):
@@ -473,8 +484,7 @@ def stereo_init(
         feats = detect_features(cfg, img_left, empty)
         feats = feats.replace(anchor=klt_ops.extract_anchors(pyr_left, feats.uv, cfg.klt), anchor_uv=feats.uv)
     T0 = torch.eye(4, dtype=img_left.dtype, device=dev)
-    with timer.span("stereo"):
-        feats = find_features_in_right(cfg, rig, pyr_left, pyr_right, feats, wmap.lm_pos, T0)
+    feats = _stereo(cfg, rig, pyr_left, pyr_right, feats, wmap.lm_pos, T0)
     n_match = timer.read((feats.valid & feats.has_right).sum(), "stereo_init")
     if n_match < cfg.num_features_init:
         return False, feats, wmap

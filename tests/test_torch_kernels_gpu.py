@@ -31,6 +31,10 @@ and replays it with the same results as an inline solve.
 backend's side stream must keep its snapshot intact until the merge; the
 device pose graph gives the same bits twice and agrees with the CPU.
 
+Scanline stereo's kernel (K3) gives its plain version's bits at every
+disparity width and half-patch it is tested at, in one launch with no host
+read, and takes the first disparity where costs tie.
+
 Every synchronization of a tracking frame and of a keyframe frame happens
 inside one of the program's `read` spans (utils/timer.py), and an explicit
 `torch.cuda.synchronize()`, such as the benchmark's spans end in, is not
@@ -384,6 +388,102 @@ def test_pose_dispatch_picks_kernel_on_cuda(cuda):
     n0 = pose_k.estimate_pose_kernel.launches
     pose_k.estimate_pose(intr, T, P, uv, valid)
     assert pose_k.estimate_pose_kernel.launches == n0 + 1
+
+
+def _stereo_cases():
+    """tests/stereo_cases.py, loaded by path (the card's Python has a
+    `tests` package of its own)."""
+    import importlib.util
+    import os
+
+    spec = importlib.util.spec_from_file_location("stereo_cases",
+                                                  os.path.join(os.path.dirname(__file__), "stereo_cases.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# The rigs of tests/stereo_cases.py: D = 7 (rows_sum's C < 8 order), 28 and
+# 27 (KITTI 00 and 05 at half resolution: four partial sums), 98 (chip_smoke's
+# plane world: 96 columns row by row) and 390 (two levels of carries).
+STEREO_RIGS = ["d7", "kitti00", "kitti05", "smoke", "near"]
+
+
+@pytest.mark.parametrize("rig", STEREO_RIGS)
+@pytest.mark.parametrize("half_patch", [1, 3, 5, 9])
+@pytest.mark.parametrize("n", [512, 150])  # 150 lanes: the last block holds 2 of its 4 warps
+def test_stereo_kernel_bit_for_bit(cuda, rig, half_patch, n):
+    """K3 gives the plain version's bits on the same card, uv_r and ok:
+    invalid lanes, lanes off the image (strips that leave it) and lanes in a
+    texture that repeats every 5 px (ambiguous) among them."""
+    from legoslam_tpu_torch.kernels import stereo as stereo_k
+
+    pyr_l, pyr_r, kp, valid, d_min, d_max = _stereo_cases().stereo_case(rig, n, device=cuda)
+    cfg = stereo_k.ScanlineConfig(half_patch=half_patch)
+    n0 = stereo_k.match_kernel.launches
+    out_k = stereo_k.match_kernel(pyr_l, pyr_r, kp, valid, d_min, d_max, cfg)
+    out_e = stereo_k.match_eager(pyr_l, pyr_r, kp, valid, d_min, d_max, cfg)
+    torch.cuda.synchronize()
+    assert stereo_k.match_kernel.launches == n0 + 1
+    assert _same_bits(out_k, out_e), int((_bits(out_k[0]) != _bits(out_e[0])).any(-1).sum())
+    assert 0.4 * int(valid.sum()) < int(out_k[1].sum()) < int(valid.sum())
+
+
+def test_stereo_kernel_at_a_fused_row_shape_and_half_patch_0(cuda):
+    """94x310, whose bilinear row pass is a fused multiply-add, and a 1x1
+    patch: the plain version's bits."""
+    from legoslam_tpu_torch.kernels import stereo as stereo_k
+
+    cases = _stereo_cases()
+    for half_patch, shape in ((3, (94, 310)), (9, (94, 310)), (0, (188, 620))):
+        args = cases.stereo_case("kitti00", 150, shape, device=cuda)
+        cfg = stereo_k.ScanlineConfig(half_patch=half_patch)
+        assert _same_bits(stereo_k.match_kernel(*args, cfg), stereo_k.match_eager(*args, cfg)), (half_patch, shape)
+
+
+def test_stereo_tied_costs_take_the_first_disparity(cuda):
+    """A constant right image ties every disparity's cost: kernel and plain
+    version on the card both take the first (x_r = x - d_hi)."""
+    from legoslam_tpu_torch.kernels import stereo as stereo_k
+
+    cases = _stereo_cases()
+    pyr_l, pyr_r, kp, valid, d_min, d_max = cases.tied_case(device=cuda)
+    d_hi = cases.first_disparity(d_min, d_max)
+    for uv, ok in (stereo_k.match_kernel(pyr_l, pyr_r, kp, valid, d_min, d_max),
+                   stereo_k.match_eager(pyr_l, pyr_r, kp, valid, d_min, d_max)):
+        assert torch.equal(uv[:, 0], kp[:, 0] - float(d_hi)) and not bool(ok.any())
+
+
+def test_stereo_kernel_is_one_launch_and_no_host_read(cuda):
+    """One `match_kernel` call (through the dispatching `ops.stereo.match`)
+    raises `launches` by exactly 1 and makes no synchronization; the plain
+    version reads `stereo_refine` to the host on every iteration."""
+    from legoslam_tpu_torch.kernels import stereo as stereo_k
+    from legoslam_tpu_torch.ops import stereo as stereo_ops
+
+    args = _stereo_cases().stereo_case("kitti00", 512, device=cuda)
+    stereo_k.match_kernel(*args)  # built and loaded
+    torch.cuda.synchronize()
+    n0 = stereo_k.match_kernel.launches
+    _, reads = timer.count_host_reads(lambda: stereo_ops.match(*args))
+    assert stereo_k.match_kernel.launches == n0 + 1 and reads == 0
+    _, reads_plain = timer.count_host_reads(lambda: stereo_k.match_eager(*args))
+    assert reads_plain >= 1
+
+
+def test_stereo_kernel_refuses_bad_input(cuda):
+    from legoslam_tpu_torch.kernels import stereo as stereo_k
+
+    pyr_l, pyr_r, kp, valid, d_min, d_max = _stereo_cases().stereo_case("kitti00", 64, device=cuda)
+    cfg = stereo_k.ScanlineConfig()
+    with pytest.raises(ValueError, match="half_patch"):
+        stereo_k.match_kernel(pyr_l, pyr_r, kp, valid, d_min, d_max, cfg._replace(half_patch=10))
+    with pytest.raises(ValueError, match="strip"):
+        stereo_k.match_kernel(pyr_l, pyr_r, kp, valid, d_min, 3000.0, cfg)
+    with pytest.raises(ValueError, match="image"):
+        stereo_k.match_kernel((pyr_l[0].double(),), pyr_r, kp, valid, d_min, d_max, cfg)
+    with pytest.raises(ValueError, match="valid"):
+        stereo_k.match_kernel(pyr_l, pyr_r, kp, valid.float(), d_min, d_max, cfg)
 
 
 @pytest.mark.parametrize("n", [256, 8192])
